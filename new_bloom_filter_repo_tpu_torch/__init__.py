@@ -1,0 +1,36 @@
+"""PyTorch/CUDA port of the rational-Bloom-filter lossless video codec.
+
+The counterpart of :mod:`new_bloom_filter_repo_tpu` (the JAX package,
+which stays the reference) for NVIDIA Hopper cards.  Module names mirror
+the reference's, so each module's counterpart is easy to find.  Plain
+tensor code is PyTorch; the blocked rational-Bloom kernels on the codec's
+main path are hand-written CUDA C++ (``ops/csrc/blocked.cu``), built at
+first use, each with a plain PyTorch twin that CPU tensors run.
+
+The port covers the default blocked exact codec:
+``ImprovedVideoCompressor(mode="bloom", profile="blocked", exact=True,
+motion=True)`` on uniform uint8 frames with at most 3 channels, with an
+explicit ``device`` argument.  It never imports ``jax``.
+"""
+
+__version__ = "0.1.0"
+
+from new_bloom_filter_repo_tpu_torch.models.bloom import (  # noqa: F401
+    RationalBloomFilter,
+    StandardBloomFilter,
+)
+
+# The video classes resolve lazily (PEP 562), like the reference package.
+_LAZY = {
+    "ImprovedVideoCompressor": "new_bloom_filter_repo_tpu_torch.models.video",
+}
+
+__all__ = ["RationalBloomFilter", "StandardBloomFilter", *sorted(_LAZY)]
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,209 @@
+"""The PyTorch port's blocked pipeline against the JAX package's.
+
+Hash tables, phase A (diff masks, per-block counts, packed pixels, the
+global-motion search and its shift gate), the per-tile motion summary,
+and whole chunks through the encoder and decoder.  Inputs are seeded
+numpy clips handed to both packages; every comparison is exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from new_bloom_filter_repo_tpu.models import blocked_pipeline as jbp
+from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as tbp
+from new_bloom_filter_repo_tpu_torch.models import frame_codec as fc
+from new_bloom_filter_repo_tpu_torch.ops import hashtables as tht
+from new_bloom_filter_repo_tpu_torch.utils.synthetic import (
+    SUITE,
+    generate_frames,
+)
+
+
+def clip(name, f=8, w=64, h=48, gray=False, seed=0):
+    frames = generate_frames(f, w, h, seed=seed, **SUITE[name])
+    if gray:
+        frames = [np.ascontiguousarray(x[..., 0]) for x in frames]
+    return frames
+
+
+def n(x):
+    return np.asarray(x)
+
+
+def tied_clip():
+    """A clip whose motion search ties: every column pattern repeats
+    with period 4, and the scene moves 2 px right, so dx = -6, -2, 2
+    and 6 all match exactly (dy = 0).  The gate must take the first
+    minimum in (dy, dx) order, dx = -6."""
+    rng = np.random.default_rng(5)
+    cols = rng.integers(0, 256, (48, 4, 3), dtype=np.uint8)
+    prev = np.tile(cols, (1, 16, 1))
+    prev[:, :, 1] = rng.integers(0, 256, (48, 1), dtype=np.uint8)
+    return [prev, np.roll(prev, 2, axis=1)]
+
+
+@pytest.mark.parametrize("npix", [64 * 48, 8192, 96 * 80, 20000])
+def test_tables_match_jax(npix):
+    jt = jbp.blocked_tables(npix)
+    tt = tht.blocked_tables(npix, "cpu")
+    assert (tt["nb"], tt["npad"]) == (jt["nb"], jt["npad"])
+    assert tt["npad"] % tht.SUPER == 0 and tt["npad"] >= npix
+    nb = jt["nb"]
+    for k in ("h1", "h2", "act_hi", "act_lo"):
+        assert tt[k].dtype == torch.int32 and tuple(tt[k].shape) == (
+            nb, tht.IPB)
+        np.testing.assert_array_equal(
+            n(tt[k]), n(jt[k])[:nb].view(np.int32))
+    carried = tht.tables_from_numpy({k: n(v) if hasattr(v, "shape") else v
+                                     for k, v in jt.items()})
+    assert (carried["nb"], carried["npad"]) == (nb, jt["npad"])
+    for k in ("h1", "h2", "act_hi", "act_lo"):
+        assert carried[k].dtype == torch.int32
+        assert torch.equal(carried[k], tt[k])
+
+
+PHASE_A_CLIPS = {
+    "pan_rgb": lambda: clip("pan"),
+    "static_rgb": lambda: clip("static_gentle"),
+    "pan_gray": lambda: clip("pan", w=96, h=80, gray=True),
+    "scene_cuts_rgb": lambda: clip("scene_cuts", f=14),
+    "tied": tied_clip,
+}
+
+
+@pytest.mark.parametrize("name", sorted(PHASE_A_CLIPS))
+def test_phase_a_matches_jax(name):
+    frames = PHASE_A_CLIPS[name]()
+    stacked = np.stack(frames)
+    h, w = frames[0].shape[:2]
+    npad = tht.npad_of(h * w)
+    nb = npad // tht.IPB
+    stride = jbp.motion_stride(h, w)
+    assert stride == tbp.motion_stride(h, w)
+    want = [n(x) for x in jbp._phase_a_auto(jnp.asarray(stacked),
+                                            stride=stride, npad=npad, nb=nb)]
+    st = torch.from_numpy(stacked)
+    got = [n(x) for x in tbp._phase_a_auto(st, stride=stride, npad=npad,
+                                           nb=nb)]
+    for g, w_ in zip(got, want):       # masks, counts, vals, shifts, best
+        assert g.shape == w_.shape and g.dtype == w_.dtype
+        np.testing.assert_array_equal(g, w_)
+    np.testing.assert_array_equal(
+        n(tbp._motion_counts_pair(st[:-1], st[1:], stride=stride)),
+        n(jbp._motion_counts(jnp.asarray(stacked), stride=stride)))
+    for g, w_ in zip(tbp._phase_a(st, npad=npad, nb=nb),
+                     jbp._phase_a(jnp.asarray(stacked), npad=npad, nb=nb)):
+        np.testing.assert_array_equal(n(g), n(w_))
+    np.testing.assert_array_equal(
+        n(tbp._phase_a_packed(st, npad=npad)),
+        n(jbp._phase_a_packed(jnp.asarray(stacked), npad=npad)))
+    shifts = want[3].copy()
+    np.testing.assert_array_equal(
+        n(tbp._phase_a_packed_motion(st, torch.from_numpy(shifts),
+                                     npad=npad)),
+        n(jbp._phase_a_packed_motion(jnp.asarray(stacked),
+                                     jnp.asarray(shifts), npad=npad)))
+    if name == "tied":
+        np.testing.assert_array_equal(got[4], [[0, -6]])
+        np.testing.assert_array_equal(got[3], [[0, -6]])
+    if name.startswith("pan"):
+        assert got[3].any()           # the pan was found
+
+
+@pytest.mark.parametrize("name", ["pan", "zoom"])
+def test_tile_motion_best_matches_jax(name):
+    frames = clip(name, f=4, w=96, h=80)
+    stacked = np.stack(frames)
+    h, w = frames[0].shape[:2]
+    tlog, stride = jbp.tile_log(h, w), jbp.motion_stride(h, w)
+    want = n(jbp._tile_motion_best(jnp.asarray(stacked), tlog=tlog,
+                                   stride=stride))
+    got = n(tbp._tile_motion_best(torch.from_numpy(stacked), tlog=tlog,
+                                  stride=stride))
+    assert got.dtype == np.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_pack_helpers_round_trip():
+    rng = np.random.default_rng(2)
+    for shape in [(7, 9, 3), (7, 9, 2), (7, 9)]:
+        base = rng.integers(0, 256, shape, dtype=np.uint8)
+        packed = tbp._pack_base(torch.from_numpy(base), npad=8192, nb=8)
+        np.testing.assert_array_equal(
+            n(packed), n(jbp._pack_base(jnp.asarray(base), npad=8192,
+                                        nb=8)))
+        frames = tbp._unpack_frames(packed[None], shape=shape)
+        np.testing.assert_array_equal(n(frames)[0], base)
+        c = 1 if len(shape) == 2 else shape[2]
+        vb = tbp._pack_vseg_bytes(packed[None], c)
+        np.testing.assert_array_equal(
+            n(vb), n(jbp._pack_vseg_bytes(jnp.asarray(n(packed))[None], c)))
+        np.testing.assert_array_equal(
+            n(tbp._unpack_vseg_bytes(vb, c)), n(packed)[None])
+
+
+CHUNK_CLIPS = {
+    "pan_rgb": lambda: clip("pan", f=9),
+    "static_gray": lambda: clip("static_gentle", f=9, w=96, h=80,
+                                gray=True),
+    "scene_cuts_rgb": lambda: clip("scene_cuts", f=14),
+    "film_grain_rgb": lambda: clip("film_grain", f=6),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHUNK_CLIPS))
+def test_chunk_payloads_match_jax(name):
+    frames = CHUNK_CLIPS[name]()
+    base, chunk = frames[0], frames[1:]
+
+    def keyframe_fn(j):      # scene-cut fallback, host bytes only
+        return fc.encode_keyframe_best(chunk[j], None, zlib_level=6)
+
+    want, want_kf = jbp.BlockedEncoder().encode_chunk_begin(
+        base, chunk, keyframe_fn)()
+    got, got_kf = tbp.BlockedEncoder(device="cpu").encode_chunk_begin(
+        base, chunk, keyframe_fn)()
+    assert got_kf == want_kf
+    assert len(got) == len(want) == len(chunk)
+    for j, (g, w_) in enumerate(zip(got, want)):
+        assert g == w_, f"{name}: record {j} differs"
+
+
+def test_chunk_decoders_agree_with_each_other():
+    """A device-decodable run (motion-wrapped blocked records and an
+    empty record) decodes to the source frames through either package's
+    run decoder, the port's chaining on its device-resident last
+    frame."""
+    frames = clip("pan", f=9)
+    frames.insert(5, frames[4].copy())            # an EMPTY record
+    base, chunk = frames[0], frames[1:]
+    payloads, kf = tbp.BlockedEncoder().encode_chunk_begin(base, chunk)()
+    assert kf == 0
+    assert {fc.record_type(p) for p in payloads} == {fc.MOTION, fc.EMPTY}
+    dec = tbp.BlockedDecoder(device="cpu")
+    last, fin = dec.decode_run_begin(base, payloads[:4])
+    assert torch.is_tensor(last)
+    first = fin()
+    rest = dec.decode_run(last, payloads[4:])
+    for got, src in zip(first + rest, chunk):
+        np.testing.assert_array_equal(got, src)
+    for got, src in zip(jbp.BlockedDecoder().decode_run(base, payloads),
+                        chunk):
+        np.testing.assert_array_equal(n(got), src)
+
+
+def test_decoder_rejects_out_of_range_m():
+    """A blocked record whose sub-filter width lies outside [16, 384]
+    is refused, as the reference decoder refuses it."""
+    npix = 64 * 48
+    nb = tht.npad_of(npix) // tht.IPB
+    rec = fc.build_interframe_record(
+        0.01, npix, 2.0, b"\xff" * nb, 8 * nb, b"\x00", 1,
+        np.zeros(0, np.uint8))
+    bad = bytes([fc.BLOCKED]) + rec[1:]
+    base = np.zeros((48, 64, 3), np.uint8)
+    with pytest.raises(ValueError, match="sub-filter width 8"):
+        tbp.BlockedDecoder().decode_run(base, [bad])
