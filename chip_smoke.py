@@ -5,27 +5,43 @@
 
 Drives the port's main path, ``ImprovedVideoCompressor(device="cuda")``
 (blocked profile, exact, motion on), through ``compress_video`` and
-``decompress_video`` at 1080p, after building the hand-written Hopper
-kernels K1-K4 from ``new_bloom_filter_repo_tpu_torch/ops/csrc`` and
-holding each against its plain PyTorch twin on the card.  Phases:
+``decompress_video`` at 1080p, and its multi-device paths (the mesh dry
+run and ``devices=``), after building the hand-written Hopper kernels
+K1-K5b from ``new_bloom_filter_repo_tpu_torch/ops/csrc`` and holding
+each against its plain PyTorch twin on the card.  Phases:
 
 1. device: the card, its power limit, the kernel build;
 2. kernel vs twin at the 1080p chunk shapes (F = 15, NB = 2032), on the
    inputs of a real chunk and on a mix with edge-case filter widths,
-   pass-through flags and raw masks; exact equality (tolerance 0);
+   pass-through flags and raw masks; exact equality (tolerance 0); K5a
+   and K5b run on the ``_frame_mod_tables`` of the same inputs and must
+   also equal K1 and K2;
 3. the bench clip (1920x1080x3, 31 frames), round trip bit-exact;
 4. the synthetic ``pan`` clip (seed 0, 31 frames, 1080p), round trip
    bit-exact, with type-6 motion records;
 5. a CIF clip encoded on the card and on the CPU (the twins) to
    identical ``.bfvc`` bytes, and the committed JAX-written fixture
-   decoded bit-exactly.
+   decoded bit-exactly;
+6. the mesh dry run ``graft_entry.dryrun_blocked_dp`` on a dp = 4 mesh
+   (four cards where the machine has them, else one card four times)
+   at nb = 2032, 8 frames: K5a encode, K5b + K4 decode, mask == bits,
+   and every sharded output equal to the unsharded wrappers';
+7. ``devices=``: the phase-3 clip on a (2, 2) mesh and the phase-4 clip
+   on a (2, 1) mesh, each ``.bfvc`` byte-identical to the single-device
+   file and decoded bit-exactly through the mesh; the same over
+   distinct cards where the machine has two or more; one 3840x2160x3
+   chunk of 5 frames on a (1, 2) mesh, byte-identical to one device.
 
-Phases 3 and 4 are the main-path run: every kernel's launch count is
-set to 0 just before them and read just after, and a kernel the path
-did not launch fails the run.  Every phase that fails raises; nothing
-falls back to the CPU.  The second-to-last lines are the per-kernel
-JSON and the card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
+Phases 3-4, 6 and 7 are the paths: every kernel's launch count is set
+to 0 just before each and read just after, and a kernel its path must
+launch that it did not fails the run (K1-K4 on phases 3-4; K5a, K5b
+and K4 on phase 6; K1, K2 and K4 on phase 7).  Every phase that fails
+raises; nothing falls back to the CPU.  The second-to-last lines are
+the per-kernel JSON (launches summed over the three path runs) and the
+card's name and power limit; the last line is ``{"ok": true,
+"device": {...}}``.  Exits non-zero without a CUDA card.
+``--mesh-only`` runs phases 1, 3-4, 6 and 7 alone, on a machine with
+several cards, and prints no result line.
 """
 
 from __future__ import annotations
@@ -50,6 +66,8 @@ KERNELS = {
     "blocked_membership_h": ("K2", 703),
     "blocked_expand_chain": ("K3", 832),
     "blocked_expand": ("K4", 774),
+    "blocked_encode": ("K5a", 595),
+    "blocked_membership": ("K5b", 740),
 }
 H, W = 1080, 1920
 CHUNK = 15
@@ -159,11 +177,13 @@ def max_abs_err(got, want) -> int:
 
 
 def kernel_cases(enc_args, enc_kw, dev, flagged: bool, seed: int):
-    """(name, kernel call, twin call) for K1-K4 on one input mix.  The
+    """(name, kernel call, twin call) for K1-K5b on one input mix.  The
     decode kernels take K1's outputs (the twin's, which the kernel must
-    equal); with ``flagged``, every third frame is a pass-through frame
+    equal); K5a and K5b take the ``_frame_mod_tables`` of K1's and K2's
+    inputs; with ``flagged``, every third frame is a pass-through frame
     with a random raw mask."""
     import torch
+    from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as bp
     from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
 
     words, wit, _, vseg, _ = bk.blocked_encode_h_ref(*enc_args, **enc_kw)
@@ -183,6 +203,9 @@ def kernel_cases(enc_args, enc_kw, dev, flagged: bool, seed: int):
     passes, _ = bk.blocked_membership_h_ref(*mem, k_lanes=k_lanes, nw=nw)
     base = vals[0].clone()
     exp = (passes, wit, raw, flags, vseg)
+    a, b, act = bp._frame_mod_tables(h1, h2, ahi, alo, m, thi, tlo)
+    enc5 = (enc_args[0], a, b, act, vals, m, fk)
+    mem5 = (words, a, b, act, m, fk, flags)
     return [
         ("blocked_encode_h",
          lambda: bk.blocked_encode_h(*enc_args, **enc_kw),
@@ -196,7 +219,18 @@ def kernel_cases(enc_args, enc_kw, dev, flagged: bool, seed: int):
         ("blocked_expand",
          lambda: bk.blocked_expand(*exp, vh=vh),
          lambda: bk.blocked_expand_ref(*exp, vh=vh)),
+        ("blocked_encode",
+         lambda: bk.blocked_encode(*enc5, **enc_kw),
+         lambda: bk.blocked_encode_ref(*enc5, **enc_kw)),
+        ("blocked_membership",
+         lambda: bk.blocked_membership(*mem5, k_lanes=k_lanes, nw=nw),
+         lambda: bk.blocked_membership_ref(*mem5, k_lanes=k_lanes, nw=nw)),
     ]
+
+
+# K5a/K5b must equal K1/K2 on the materialized tables of the same inputs
+SAME_AS = {"blocked_encode": "blocked_encode_h",
+           "blocked_membership": "blocked_membership_h"}
 
 
 def phase_kernels(dev, frames, reps: int = 20, twin_reps: int = 3):
@@ -216,23 +250,31 @@ def phase_kernels(dev, frames, reps: int = 20, twin_reps: int = 3):
         bits = args[0]
         log(f"  mix {label}: F={bits.shape[0]} NB={bits.shape[1]} "
             f"k_lanes={kw['k_lanes']} nw={kw['nw']} vh={kw['vh']}")
+        got_by_name = {}
         for name, kern, twin in kernel_cases(args, kw, dev, flagged, seed):
             got = kern()
             want = twin()
             torch.cuda.synchronize()
             err = max_abs_err(got, want)
+            got_by_name[name] = got
             rec = out.setdefault(name, {"max_abs_err": 0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             line = f"    {KERNELS[name][0]} {name}: max_abs_err={err}"
+            if name in SAME_AS:
+                same = max_abs_err(got, got_by_name[SAME_AS[name]])
+                line += (f", vs {KERNELS[SAME_AS[name]][0]} kernel on the "
+                         f"same inputs max_abs_err={same}")
+                err = max(err, same)
             if label == "real chunk":
                 rec["ms"] = time_ms(kern, reps)
                 rec["plain_ms"] = time_ms(twin, twin_reps)
-                line += (f" kernel {rec['ms']:.4f} ms, plain twin "
+                line += (f"; kernel {rec['ms']:.4f} ms, plain twin "
                          f"{rec['plain_ms']:.4f} ms")
             log(line)
             if err != 0:
-                raise AssertionError(f"{name} disagrees with its twin on "
-                                     f"{label}: max_abs_err={err}")
+                raise AssertionError(f"{name} disagrees with its twin or "
+                                     f"its hash-prelude kernel on {label}: "
+                                     f"max_abs_err={err}")
     return out
 
 
@@ -253,14 +295,15 @@ def count_records(path):
     return hist
 
 
-def round_trip(label, frames, dev, path, card):
+def round_trip(label, frames, dev, path, card, **options):
     """compress_video -> .bfvc -> decompress_video, bit-exact; prints
-    the fps of each direction beside the card."""
+    the fps of each direction beside the card.  ``options`` go to the
+    compressor (``devices=``, ``batch_size=``)."""
     import torch
     from new_bloom_filter_repo_tpu_torch.models.video import (
         ImprovedVideoCompressor)
 
-    comp = ImprovedVideoCompressor(device=dev)
+    comp = ImprovedVideoCompressor(device=dev, **options)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats = comp.compress_video(frames, path)
@@ -279,6 +322,19 @@ def round_trip(label, frames, dev, path, card):
     return hist
 
 
+def path_launches(label: str, needed):
+    """Launch counts of the path run just driven; raises if a kernel in
+    ``needed`` was not launched."""
+    from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+
+    launches = bk.launches()
+    log(f"  {label} kernel launches: {launches}")
+    missing = [k for k in needed if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{label} never launched {missing}")
+    return launches
+
+
 def phase_main_path(dev, bench_frames, pan_frames, tmp, card):
     from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
 
@@ -288,11 +344,10 @@ def phase_main_path(dev, bench_frames, pan_frames, tmp, card):
     pan_hist = round_trip("phase 4 pan 1080p (synthetic, seed 0)",
                           pan_frames, dev, os.path.join(tmp, "pan.bfvc"),
                           card)
-    launches = bk.launches()
-    log(f"  main-path kernel launches: {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
+    launches = path_launches("main path", ["blocked_encode_h",
+                                           "blocked_membership_h",
+                                           "blocked_expand_chain",
+                                           "blocked_expand"])
     if not any(k.startswith("6>") for k in pan_hist):
         raise AssertionError("pan clip produced no type-6 motion record")
     return launches
@@ -327,9 +382,109 @@ def phase_parity(dev, tmp):
         f"{count_records(FIXTURE)})")
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phases 6-7: the multi-device paths
+# ---------------------------------------------------------------------------
+
+def mesh_devices(n: int):
+    """n distinct cards where the machine has them, else card 0 n times;
+    and whether they are distinct."""
     import torch
 
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)], True
+    return [torch.device("cuda", 0)] * n, False
+
+
+def phase_dryrun(nb: int):
+    """graft_entry.dryrun_blocked_dp on a dp = 4 mesh; every sharded
+    output must equal the unsharded wrappers' on the same inputs."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch import graft_entry
+    from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+    from new_bloom_filter_repo_tpu_torch.parallel.mesh import make_mesh
+
+    devs, distinct = mesh_devices(4)
+    mesh = make_mesh(4, 1, devs)
+    log(f"  layout dp=4 sp=1 over {[str(d) for d in devs]} "
+        f"(distinct cards: {distinct}), nb={nb}")
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    out = graft_entry.dryrun_blocked_dp(mesh, nb=nb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_launches("dry run", ["blocked_encode",
+                                         "blocked_membership",
+                                         "blocked_expand"])
+    bits, a, b, act, vals, m, fk = out["args"]
+    words, wit, _, vseg, _ = want_enc = bk.blocked_encode(
+        *out["args"], k_lanes=2, vh=4)
+    passes, wcnt = bk.blocked_membership(words, a, b, act, m, fk,
+                                         out["flags"], k_lanes=2)
+    want_dec = (passes, wcnt) + bk.blocked_expand(
+        passes, wit, torch.zeros_like(bits), out["flags"], vseg, vh=4)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(out["encoded"], want_enc),
+              max_abs_err(out["decoded"], want_dec))
+    log(f"  dry run {bits.shape[0]} frames x {nb} blocks: mask == bits; "
+        f"sharded vs unsharded max_abs_err={err}; wall {wall:.3f} s "
+        f"including the host's input generation")
+    if err != 0:
+        raise AssertionError(f"sharded dry run differs from unsharded: "
+                             f"max_abs_err={err}")
+    return launches
+
+
+def phase_devices(dev, bench, pan, tmp, card):
+    """devices=: each mesh layout's stream must equal one device's."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+    from new_bloom_filter_repo_tpu_torch.parallel.mesh import make_mesh
+
+    one = [torch.device("cuda", 0)]
+    layouts = [("bench clip", bench, make_mesh(2, 2, one * 4), "static"),
+               ("pan clip", pan, make_mesh(2, 1, one * 2), "pan")]
+    if torch.cuda.device_count() >= 2:
+        devs, _ = mesh_devices(4 if torch.cuda.device_count() >= 4 else 2)
+        layouts.append(("bench clip, distinct cards", bench,
+                        make_mesh(2, len(devs) // 2, devs), "static"))
+    k4 = make_bench_clip(5, h=2 * H, w=2 * W)
+    round_trip("4K 5 frames, one device", k4, dev,
+               os.path.join(tmp, "k4_single.bfvc"), card, batch_size=4)
+    devs, _ = mesh_devices(2)
+    layouts.append(("4K 5 frames", k4, make_mesh(1, 2, devs), "k4_single"))
+
+    bk.reset_launches()
+    for label, frames, mesh, ref in layouts:
+        distinct = len(mesh.distinct_devices()) > 1
+        path = os.path.join(tmp, f"mesh_{ref}.bfvc")
+        kw = {"batch_size": 4} if ref == "k4_single" else {}
+        round_trip(f"phase 7 {label} on {mesh} (distinct cards: "
+                   f"{distinct})", frames, None, path, card, devices=mesh,
+                   **kw)
+        with open(path, "rb") as x, open(os.path.join(tmp, f"{ref}.bfvc"),
+                                         "rb") as y:
+            if x.read() != y.read():
+                raise AssertionError(f"{label}: the mesh stream differs "
+                                     f"from the single-device stream")
+        log("    .bfvc byte-identical to the single-device file")
+    return path_launches("devices=", ["blocked_encode_h",
+                                      "blocked_membership_h",
+                                      "blocked_expand"])
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run phases 1, 3-4 (the single-device streams "
+                         "the mesh streams are held to), 6 and 7 only, for "
+                         "a machine with several cards; prints no result "
+                         "line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script runs only on a CUDA card", file=sys.stderr)
@@ -350,7 +505,7 @@ def main() -> int:
     log(f"  kernels built from {CSRC} in {_build.build_seconds:.2f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name, spills, regs in re.findall(
-            r"Compiling entry function '\S*?(k\d_[a-z_]+)\S*'.*?"
+            r"Compiling entry function '\S*?(k\d[ab]?_[a-z_]+)\S*'.*?"
             r"(\d+) bytes spill stores.*?Used (\d+) registers",
             _build.build_log, re.S):
         log(f"    ptxas {name}: {regs} registers, {spills} bytes spilled")
@@ -361,13 +516,23 @@ def main() -> int:
                                     **synthetic.SUITE["pan"])
     log(f"  clips generated on the host in {time.perf_counter() - t0:.2f} s")
 
-    log(f"phase 2 kernels vs twins at 1080p chunk shapes ({smi}):")
-    stats = phase_kernels(dev, bench)
+    if not args.mesh_only:
+        log(f"phase 2 kernels vs twins at 1080p chunk shapes ({smi}):")
+        stats = phase_kernels(dev, bench)
     with tempfile.TemporaryDirectory() as tmp:
         log("phases 3-4 main path:")
-        launches = phase_main_path(dev, bench, pan, tmp, smi)
-        log("phase 5 parity:")
-        phase_parity(dev, tmp)
+        runs = [phase_main_path(dev, bench, pan, tmp, smi)]
+        if not args.mesh_only:
+            log("phase 5 parity:")
+            phase_parity(dev, tmp)
+        log(f"phase 6 mesh dry run ({smi}):")
+        runs.append(phase_dryrun(nb=2032))
+        log(f"phase 7 devices= ({smi}):")
+        runs.append(phase_devices(dev, bench, pan, tmp, smi))
+    if args.mesh_only:
+        log(f"mesh-only run OK on {torch.cuda.device_count()} cards")
+        return 0
+    launches = {n: sum(r[n] for r in runs) for n in KERNELS}
 
     kernels = [{"name": f"{KERNELS[n][0]} {n}", "route": "cuda",
                 "source": CSRC,

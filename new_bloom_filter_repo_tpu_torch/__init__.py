@@ -3,14 +3,16 @@
 The counterpart of :mod:`new_bloom_filter_repo_tpu` (the JAX package,
 which stays the reference) for NVIDIA Hopper cards.  Module names mirror
 the reference's, so each module's counterpart is easy to find.  Plain
-tensor code is PyTorch; the blocked rational-Bloom kernels on the codec's
-main path are hand-written CUDA C++ (``ops/csrc/blocked.cu``), built at
+tensor code is PyTorch; the blocked rational-Bloom kernels are
+hand-written CUDA C++ (``ops/csrc/blocked.cu``), built at
 first use, each with a plain PyTorch twin that CPU tensors run.
 
 The port covers the default blocked exact codec:
 ``ImprovedVideoCompressor(mode="bloom", profile="blocked", exact=True,
 motion=True)`` on uniform uint8 frames with at most 3 channels, with an
-explicit ``device`` argument.  It never imports ``jax``.
+explicit ``device`` argument, on one device or, with ``devices=``, on a
+(dp, sp) mesh of devices driven by one process (``parallel/``).  It
+never imports ``jax``.
 """
 
 __version__ = "0.1.0"

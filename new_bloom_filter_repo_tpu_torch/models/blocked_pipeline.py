@@ -12,8 +12,14 @@ host witness/value slicing, then the fused expansion + chain kernel
 per-frame roll chain, and one pull of the frames.
 
 Every tensor lives on the ``device`` the encoder or decoder was built
-with; CPU tensors take the kernels' plain twins.  Record selection and
-the host ``finish()`` phase are the reference's, unchanged:
+with; CPU tensors take the kernels' plain twins.  Built with a ``mesh``
+(``parallel/mesh.py``) of more than one cell, both route phase A and
+the kernels through the frame- and block-sharded programs of
+``parallel/blocked_batch.py`` (:class:`_MeshDispatch`), gather the
+results on the mesh's home device, and decode with K4 and a chain of
+torch ops instead of K3; the stream is byte-identical with or without a
+mesh.  Record selection and the host ``finish()`` phase are the
+reference's, unchanged:
 
   count == 0                  -> EMPTY (type 2)
   density > 0.45              -> DPCM residual (type 8) or keyframe,
@@ -25,7 +31,7 @@ the host ``finish()`` phase are the reference's, unchanged:
                                  entropy-codes smaller)
 Nonzero global-motion shifts wrap any of these with a type-6 header.
 
-Not ported yet: the mesh dispatch (``devices=``, ROADMAP Queue 1
+Not ported yet: meshes that span several processes (ROADMAP Queue 1
 item 11).
 """
 
@@ -51,6 +57,8 @@ from new_bloom_filter_repo_tpu_torch.ops.hashtables import (
     blocked_tables,
     npad_of,
 )
+from new_bloom_filter_repo_tpu_torch.parallel import blocked_batch as bb
+from new_bloom_filter_repo_tpu_torch.parallel.mesh import home_device
 from new_bloom_filter_repo_tpu_torch.utils import native
 
 __all__ = ["BlockedEncoder", "BlockedDecoder", "SUPER", "blocked_tables",
@@ -486,11 +494,21 @@ def _chain_apply_motion(base: torch.Tensor, masks, vals, shifts, *, shape):
     prev = _packed_hw(base[None])[0]
     out = []
     for j in range(f):
-        rolled = torch.roll(prev, shifts=(int(shifts[j, 0]),
-                                          int(shifts[j, 1])), dims=(0, 1))
+        dy, dx = int(shifts[j, 0]), int(shifts[j, 1])
+        rolled = (torch.roll(prev, shifts=(dy, dx), dims=(0, 1))
+                  if dy or dx else prev)
         prev = torch.where(m2[j] > 0, v2[j], rolled)
         out.append(prev)
     return _unpack_frames(torch.stack(out), shape=shape)
+
+
+def _chain_apply(base: torch.Tensor, masks, vals, *, shape):
+    """Apply decoded per-frame (mask, packed-value) deltas as a chain:
+    frame_j = where(mask_j, vals_j, frame_{j-1}).  The decode chain
+    under a mesh, where K4 expands the shards and K3 is not used."""
+    return _chain_apply_motion(base, masks, vals,
+                               np.zeros((masks.shape[0], 2), np.int64),
+                               shape=shape)
 
 
 def _vh_bucket(max_count: int) -> int:
@@ -561,6 +579,100 @@ def frame_scalars(device, m_arr, thi, tlo, fk_arr):
                  for a in (m_arr, thi, tlo, fk_arr))
 
 
+def _frame_mod_tables(h1, h2, act_hi, act_lo, m_arr, t_hi, t_lo):
+    """Per-frame position tables and activation bits, materialized: the
+    inputs of K5a/K5b.  h1/h2: (NB, IPB) i32 24-bit hashes; act_hi,
+    act_lo: (NB, IPB) and t_hi, t_lo: (F,) u32 bit patterns in int32
+    (compared unsigned on int64-widened values); m_arr: (F,) i32.
+    Returns a, b (F,NB,IPB) i32 and act (F,NB,IPB) u8."""
+    a, b, act = bk._prelude(h1, h2, act_hi, act_lo, m_arr, t_hi, t_lo)
+    return a.to(torch.int32), b.to(torch.int32), act.to(torch.uint8)
+
+
+class _MeshDispatch:
+    """Routes phase A and the blocked kernels through the dp/dpsp-
+    sharded programs of ``parallel/blocked_batch.py``.
+
+    Frames shard over ``dp`` and, when the mesh's ``sp`` axis is larger
+    than 1, the block axis shards over ``sp``.  Neither axis needs
+    collectives, and the record geometry (npad, nb) is canonical per n,
+    so sharded and unsharded pipelines emit byte-identical streams.
+    Every result is gathered on the mesh's home device.  Single-process
+    only: a mesh is driven by the process that holds its devices."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.sp = int(mesh.shape["sp"])
+
+    @staticmethod
+    def _pairs(stacked):
+        """(prev, curr) frame pairs of a stacked (F+1, h, w[, c]) chunk,
+        built BEFORE sharding, so no shard needs a neighbour's frame."""
+        return stacked[:-1], stacked[1:]
+
+    def _frames(self, fn, *args):
+        return bb.run_sharded(self.mesh, fn, args, (bb.DP,) * len(args),
+                              block_axis=False)
+
+    def phase_a(self, stacked, *, npad: int, nb: int):
+        """dp-sharded diff stage: masks, counts, vals."""
+        return self._frames(lambda p, c: _phase_a_pair(p, c, npad=npad,
+                                                       nb=nb),
+                            *self._pairs(stacked))
+
+    def motion_counts(self, stacked, stride: int):
+        """dp-sharded global-motion search counts."""
+        return self._frames(
+            lambda p, c: (_motion_counts_pair(p, c, stride=stride),),
+            *self._pairs(stacked))[0]
+
+    def phase_a_auto(self, stacked, stride: int, *, npad: int, nb: int):
+        """dp-sharded fused phase A (motion search, the per-pair shift
+        decision, rolled diff): masks, counts, vals, shifts, best."""
+        return self._frames(
+            lambda p, c: _phase_a_auto_pair(p, c, stride=stride, npad=npad,
+                                            nb=nb),
+            *self._pairs(stacked))
+
+    def phase_a_motion(self, stacked, shifts, *, npad: int, nb: int):
+        """dp-sharded motion diff stage (rows independent)."""
+        return self._frames(
+            lambda p, c, s: _phase_a_motion_pair(p, c, s, npad=npad, nb=nb),
+            *self._pairs(stacked), shifts)
+
+    def _tables(self, tab):
+        return tab["h1"], tab["h2"], tab["act_hi"], tab["act_lo"]
+
+    def encode(self, masks, vals, tab, m, thi, tlo, fk, *, k_lanes, vh, nw,
+               channels):
+        """Sharded K1 encode; value segments repacked to bytes."""
+        make = (bb.make_blocked_encode_h_dpsp if self.sp > 1
+                else bb.make_blocked_encode_h_dp)
+        w, wi, wc, vs, vc = make(self.mesh, k_lanes=k_lanes, vh=vh, nw=nw)(
+            masks, *self._tables(tab), vals, m, thi, tlo, fk)
+        return w, wi, wc, _pack_vseg_bytes(vs, channels), vc
+
+    def membership(self, words, tab, m, thi, tlo, fk, flags, *, k_lanes,
+                   nw):
+        """Sharded K2 membership: (passes, wcnt)."""
+        make = (bb.make_blocked_membership_h_dpsp if self.sp > 1
+                else bb.make_blocked_membership_h_dp)
+        return make(self.mesh, k_lanes=k_lanes, nw=nw)(
+            words, *self._tables(tab), m, thi, tlo, fk, flags)
+
+    def expand(self, passes, wit, raw, flags, vseg_bytes, *, vh, channels):
+        """Value bytes unpacked to packed pixels, then sharded K4."""
+        make = (bb.make_blocked_expand_dpsp if self.sp > 1
+                else bb.make_blocked_expand_dp)
+        return make(self.mesh, vh=vh)(
+            passes, wit, raw, flags,
+            _unpack_vseg_bytes(vseg_bytes, channels))
+
+
+def _dispatch_of(mesh) -> Optional[_MeshDispatch]:
+    return _MeshDispatch(mesh) if mesh is not None and mesh.size > 1 else None
+
+
 def _strip_rows(arr2d: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     """Concatenate arr2d[i, :lengths[i]] without a Python loop.
 
@@ -613,11 +725,17 @@ def _deflate_unwinnable(buf: bytes, bits: bool,
 
 class BlockedEncoder:
     """Encodes chunks of frames into typed records via the blocked
-    kernels on ``device`` (CPU tensors run the kernels' plain twins)."""
+    kernels on ``device`` (CPU tensors run the kernels' plain twins).
+
+    ``mesh`` (optional ``parallel.mesh.Mesh``) shards phase A over
+    frames and the encode kernel over frames and blocks; tensors then
+    live on the mesh's home device, and ``device``, if given, must be of
+    its type.  The emitted stream is identical with or without a mesh."""
 
     def __init__(self, zlib_level: int = 6, num_threads: int = 0,
-                 motion: bool = True, device="cpu"):
-        self.device = torch.device(device)
+                 motion: bool = True, device=None, mesh=None):
+        self.device = home_device(mesh, device)
+        self.dispatch = _dispatch_of(mesh)
         self.zlib_level = zlib_level
         self.num_threads = int(num_threads or 0)
         # Global-motion search (type-6 wrapped records).  Any decoder
@@ -711,12 +829,21 @@ class BlockedEncoder:
         tlog = tile_log(h, w)
         if (self.motion and h >= 4 * MOTION_RADIUS
                 and w >= 4 * MOTION_RADIUS):
-            masks, counts_d, vals, shifts_d, best_d = _phase_a_auto(
-                stacked, stride=stride, npad=npad, nb=nb)
+            if self.dispatch is not None:
+                masks, counts_d, vals, shifts_d, best_d = \
+                    self.dispatch.phase_a_auto(stacked, stride, npad=npad,
+                                               nb=nb)
+            else:
+                masks, counts_d, vals, shifts_d, best_d = _phase_a_auto(
+                    stacked, stride=stride, npad=npad, nb=nb)
             counts, shifts, best_shifts = (
                 t.cpu().numpy() for t in (counts_d, shifts_d, best_d))
         else:
-            masks, counts_d, vals = _phase_a(stacked, npad=npad, nb=nb)
+            if self.dispatch is not None:
+                masks, counts_d, vals = self.dispatch.phase_a(
+                    stacked, npad=npad, nb=nb)
+            else:
+                masks, counts_d, vals = _phase_a(stacked, npad=npad, nb=nb)
             counts = counts_d.cpu().numpy()
         any_motion = bool(shifts.any())
         if stage_times is not None:
@@ -737,12 +864,16 @@ class BlockedEncoder:
 
         kinds, ks, m_arr, fk_arr, thi, tlo, geom = chunk_params(counts, n,
                                                                  nb)
-        words_d, wit_d, wcnt_d, vseg_d, vcnt_d = bk.blocked_encode_h(
-            masks, tab["h1"], tab["h2"], tab["act_hi"], tab["act_lo"],
-            vals, *frame_scalars(self.device, m_arr, thi, tlo, fk_arr),
-            **geom)
+        scalars = frame_scalars(self.device, m_arr, thi, tlo, fk_arr)
+        if self.dispatch is not None:
+            words_d, wit_d, wcnt_d, vseg_d, vcnt_d = self.dispatch.encode(
+                masks, vals, tab, *scalars, channels=channels, **geom)
+        else:
+            words_d, wit_d, wcnt_d, vseg_d, vcnt_d = bk.blocked_encode_h(
+                masks, tab["h1"], tab["h2"], tab["act_hi"], tab["act_lo"],
+                vals, *scalars, **geom)
+            vseg_d = _pack_vseg_bytes(vseg_d, channels)
         frame_counts = counts.sum(axis=1)
-        vseg_d = _pack_vseg_bytes(vseg_d, channels)
         if stage_times is not None:
             _t1 = time.time()
             stage_times["enc_param_math"] = (
@@ -1930,10 +2061,13 @@ class BlockedEncoder:
 class BlockedDecoder:
     """Decodes runs of typed records (types 0-pass/2/3/4/7/9, optionally
     type-6 wrapped) through the blocked kernels on ``device``; returns
-    reconstructed frames."""
+    reconstructed frames.
 
-    def __init__(self, device="cpu"):
-        self.device = torch.device(device)
+    ``mesh`` shards membership and expansion like :class:`BlockedEncoder`."""
+
+    def __init__(self, device=None, mesh=None):
+        self.device = home_device(mesh, device)
+        self.dispatch = _dispatch_of(mesh)
         # chunk-batch staging buffers (witness segments, value
         # segments), reused across decode_run calls.  Every row is
         # either pad_rows-filled or explicitly zeroed, so reuse never
@@ -2144,13 +2278,17 @@ class BlockedDecoder:
         tab = blocked_tables(h * w, dev)
         k_lanes = int(parsed["fk_arr"].max())
         nw = max(1, (int(parsed["m_arr"].max()) + 31) // 32)
-        passes_d, wcnt_d = bk.blocked_membership_h(
-            torch.from_numpy(parsed["words"]).to(dev),
-            tab["h1"], tab["h2"], tab["act_hi"], tab["act_lo"],
-            *frame_scalars(dev, parsed["m_arr"], parsed["thi"],
-                            parsed["tlo"], parsed["fk_arr"]),
-            torch.from_numpy(parsed["flags"]).to(dev),
-            k_lanes=k_lanes, nw=nw)
+        words = torch.from_numpy(parsed["words"]).to(dev)
+        scalars = frame_scalars(dev, parsed["m_arr"], parsed["thi"],
+                                parsed["tlo"], parsed["fk_arr"])
+        flags = torch.from_numpy(parsed["flags"]).to(dev)
+        if self.dispatch is not None:
+            passes_d, wcnt_d = self.dispatch.membership(
+                words, tab, *scalars, flags, k_lanes=k_lanes, nw=nw)
+        else:
+            passes_d, wcnt_d = bk.blocked_membership_h(
+                words, tab["h1"], tab["h2"], tab["act_hi"], tab["act_lo"],
+                *scalars, flags, k_lanes=k_lanes, nw=nw)
         return passes_d, wcnt_d.cpu().numpy()
 
     def decode_run_begin(self, base, payloads: List[bytes],
@@ -2203,19 +2341,30 @@ class BlockedDecoder:
                  else torch.zeros((f, nb, bk.IPB), dtype=torch.uint8,
                                   device=dev))
         wit_d = torch.from_numpy(wit).to(dev, copy=True)
-        vseg_d = _unpack_vseg_bytes(torch.from_numpy(vseg).to(dev),
-                                    channels)
+        vbytes_d = torch.from_numpy(vseg).to(dev)
         flags_d = torch.from_numpy(flags).to(dev)
         base_d = (base if torch.is_tensor(base)
                   else torch.from_numpy(np.array(base, np.uint8)).to(dev))
-        if bool(shifts.any()):
+        if self.dispatch is not None:
+            # under a mesh: sharded K4, then the chain on the home device
+            mask_d, vals_d = self.dispatch.expand(passes_d, wit_d, raw_d,
+                                                  flags_d, vbytes_d, vh=vh,
+                                                  channels=channels)
+            if bool(shifts.any()):
+                frames_d = _chain_apply_motion(base_d, mask_d, vals_d,
+                                               shifts, shape=shape)
+            else:
+                frames_d = _chain_apply(base_d, mask_d, vals_d, shape=shape)
+        elif bool(shifts.any()):
+            vseg_d = _unpack_vseg_bytes(vbytes_d, channels)
             mask_d, vals_d = bk.blocked_expand(passes_d, wit_d, raw_d,
                                                flags_d, vseg_d, vh=vh)
             frames_d = _chain_apply_motion(base_d, mask_d, vals_d, shifts,
                                            shape=shape)
         else:
             packed = bk.blocked_expand_chain(
-                passes_d, wit_d, raw_d, flags_d, vseg_d,
+                passes_d, wit_d, raw_d, flags_d,
+                _unpack_vseg_bytes(vbytes_d, channels),
                 _pack_base(base_d, npad=npad, nb=nb), vh=vh)
             frames_d = _unpack_frames(packed, shape=shape)
 

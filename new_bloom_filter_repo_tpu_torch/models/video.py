@@ -5,16 +5,19 @@ to the codec's main path: ``ImprovedVideoCompressor(mode="bloom",
 profile="blocked", exact=True, motion=True)`` on uniform uint8 frames
 with at most 3 channels.  Every device tensor lives on the ``device``
 the compressor was built with; a CPU device runs the kernels' plain
-twins, a CUDA device the hand-written kernels.  The ``.bfvc`` bytes are
-the reference's: for the same frames and options both packages write
-the same file, and each decodes the other's.
+twins, a CUDA device the hand-written kernels.  ``devices=`` (an int, a
+``(dp, sp)`` tuple, ``"auto"`` or a ``parallel.mesh.Mesh``) shards each
+chunk over frames and blocks on several devices of one process, with
+the same bytes as one device.  The ``.bfvc`` bytes are the reference's:
+for the same frames and options both packages write the same file, and
+each decodes the other's.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
 Queue 1 item: ``mode="keyframe"`` and ``exact=False`` (item 10),
 ``profile="planar"`` and the byte-view path for non-uint8 or wider than
 3-channel frames (item 9), ``profile="bfv2"`` and its type-0 Bloom
-records (item 10), ``devices=`` (item 11), and file export on decode
-(item 12).
+records (item 10), meshes across processes (item 11), and file export
+on decode (item 12).
 """
 
 from __future__ import annotations
@@ -30,6 +33,11 @@ import torch
 
 from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline
 from new_bloom_filter_repo_tpu_torch.models import frame_codec as fc
+from new_bloom_filter_repo_tpu_torch.parallel.mesh import (
+    Mesh,
+    auto_mesh,
+    home_device,
+)
 from new_bloom_filter_repo_tpu_torch.utils import container
 from new_bloom_filter_repo_tpu_torch.utils.yuvframe import (
     YUVFrame,
@@ -114,7 +122,12 @@ class ImprovedVideoCompressor:
 
     Keyframes every ``keyframe_interval`` frames, blocked rational-Bloom
     inter-frame records between them (container magic b'BFV2').
-    ``device`` places every tensor of the pipeline; ``prefetch`` uploads
+    ``device`` places every tensor of the pipeline (default CPU);
+    ``devices`` shards the device stages over a mesh (None: one device;
+    ``"auto"``: every card of ``device``'s type, CUDA by default; an int
+    n: n distinct cards on frames; ``(dp, sp)``: dp*sp cards, sp of them
+    on the blocks of a frame; or a ``Mesh``), and the compressor's
+    ``device`` is then the mesh's first device.  ``prefetch`` uploads
     the next chunk while the current one computes (default on;
     ``NBF_PREFETCH=0`` turns it off).  The remaining parameters mirror
     the reference's constructor; the ones that only select paths not
@@ -137,7 +150,7 @@ class ImprovedVideoCompressor:
                  devices=None,
                  prefetch: Optional[bool] = None,
                  motion: bool = True,
-                 device="cpu"):
+                 device=None):
         if mode not in ("bloom", "keyframe"):
             raise ValueError(f"unknown mode: {mode!r}")
         if profile not in ("blocked", "bfv2", "planar"):
@@ -150,8 +163,9 @@ class ImprovedVideoCompressor:
             raise _not_ported('profile="bfv2"', 10)
         if not exact:
             raise _not_ported("exact=False", 10)
-        if devices is not None:
-            raise _not_ported("devices=", 11)
+        self.mesh = _resolve_mesh(
+            devices, "cuda" if device is None else torch.device(device).type)
+        self.device = home_device(self.mesh, device)
         self.noise_tolerance = noise_tolerance
         self.keyframe_interval = max(1, int(keyframe_interval))
         self.min_diff_threshold = min_diff_threshold
@@ -171,11 +185,11 @@ class ImprovedVideoCompressor:
             prefetch = os.environ.get("NBF_PREFETCH", "1") == "1"
         self.prefetch = bool(prefetch)
         self.motion = motion
-        self.device = torch.device(device)
         self._blocked_enc = blocked_pipeline.BlockedEncoder(
-            num_threads=self.num_threads, motion=motion, device=self.device)
+            num_threads=self.num_threads, motion=motion, device=self.device,
+            mesh=self.mesh)
         self._blocked_dec = blocked_pipeline.BlockedDecoder(
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         self._keyframe_zlib_level = 6
 
     # -- encoding ----------------------------------------------------------
@@ -598,6 +612,29 @@ def _plan_segments(total: int, keyframe_interval: int,
         segments.append(("run", pos, run_end))
         pos = run_end
     return segments
+
+
+def _resolve_mesh(devices, device_type: str = "cuda") -> Optional[Mesh]:
+    """Turn the public ``devices`` parameter into a Mesh (or None).
+    ``devices=1`` and ``(1, 1)`` mean one device: no mesh."""
+    if devices is None:
+        return None
+    if isinstance(devices, Mesh):
+        return devices
+    if isinstance(devices, str):
+        if devices == "auto":
+            return auto_mesh(device_type=device_type)
+    elif isinstance(devices, int) and not isinstance(devices, bool):
+        return (auto_mesh(devices, device_type=device_type)
+                if devices > 1 else None)
+    elif isinstance(devices, (tuple, list)) and len(devices) == 2:
+        dp, sp = int(devices[0]), int(devices[1])
+        # (dp, sp): reserve an sp axis so oversized (4K/8K) frames shard
+        # their block axis within a frame as well as across frames.
+        return (auto_mesh(dp * sp, sp=sp, device_type=device_type)
+                if dp * sp > 1 else None)
+    raise ValueError(f"devices must be None, 'auto', an int, a (dp, sp) "
+                     f"tuple, or a Mesh; got {devices!r}")
 
 
 def _copy_info(info: Optional[dict]) -> Optional[dict]:

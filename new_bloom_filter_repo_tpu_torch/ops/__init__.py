@@ -1,1 +1,1 @@
-"""Device ops: per-geometry hash tables and the blocked Bloom kernels (K1-K4)."""
+"""Device ops: per-geometry hash tables and the blocked Bloom kernels (K1-K5b)."""

@@ -46,6 +46,8 @@ _SIGNATURES = {
     "nbf_k2_membership": [_P, _I] + [_P] * 11 + [_I] * 4 + [_P],
     "nbf_k3_expand_chain": [_P] * 7 + [_I] * 3 + [_P],
     "nbf_k4_expand": [_P] * 7 + [_I] * 3 + [_P],
+    "nbf_k5a_encode": [_P] * 12 + [_I] * 5 + [_P],
+    "nbf_k5b_membership": [_P, _I] + [_P] * 8 + [_I] * 4 + [_P],
 }
 
 

@@ -1,4 +1,4 @@
-"""Blocked rational-Bloom kernels K1-K4: wrappers and plain twins.
+"""Blocked rational-Bloom kernels K1-K5b: wrappers and plain twins.
 
 The PyTorch counterpart of ``new_bloom_filter_repo_tpu/ops/pallas/
 blocked.py``.  The stream semantics are unchanged: the items of each
@@ -111,12 +111,14 @@ def _prelude(h1, h2, act_hi, act_lo, m, thi, tlo):
     thi64 = (thi.to(torch.int64) & _U32).view(f_, 1, 1)
     tlo64 = (tlo.to(torch.int64) & _U32).view(f_, 1, 1)
     act = (ahi < thi64) | ((ahi == thi64) & (alo < tlo64))
-    return a, b, m64, act
+    return a, b, act
 
 
 def _lanes(a, b, m64, act, floor_k, k_lanes):
     """Yield (positions, active) for lanes j = 0..k_lanes: position
-    (a + j*b) mod m, active when j < floor_k or (j == floor_k and act)."""
+    (a + j*b) mod m, active when j < floor_k or (j == floor_k and act).
+    The mod is one conditional subtract per lane, as in the JAX
+    package's ``_positions``: it assumes a, b < m."""
     fk = floor_k.to(torch.int64).view(-1, 1, 1)
     pos = a
     for j in range(k_lanes + 1):
@@ -146,15 +148,16 @@ def _excl_rank(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x64, dim=-1) - x64
 
 
-def blocked_encode_h_ref(bits, h1, h2, act_hi, act_lo, vals, m, thi, tlo,
-                         floor_k, *, k_lanes: int, vh: int, nw: int = NW):
-    """Plain twin of :func:`blocked_encode_h`.  Value slots beyond a
+def blocked_encode_ref(bits, a, b, act, vals, m, floor_k, *, k_lanes: int,
+                       vh: int, nw: int = NW):
+    """Plain twin of :func:`blocked_encode`.  Value slots beyond a
     block's ``vcnt`` are zero (the JAX kernel leaves compaction
     leftovers there; the stream never reads them)."""
     f_, nb, _ = bits.shape
     dev = bits.device
     cap = nw * 32
-    a, b, m64, act = _prelude(h1, h2, act_hi, act_lo, m, thi, tlo)
+    m64 = m.to(torch.int64).view(f_, 1, 1)
+    a, b, act = a.to(torch.int64), b.to(torch.int64), act != 0
     changed = bits != 0
     filt = torch.zeros(f_ * nb * cap, dtype=torch.uint8, device=dev)
     row = (torch.arange(f_ * nb, device=dev, dtype=torch.int64)
@@ -181,17 +184,36 @@ def blocked_encode_h_ref(bits, h1, h2, act_hi, act_lo, vals, m, thi, tlo,
     return words, wit, wcnt, vseg.view(f_, nb, vslots), vcnt
 
 
-def blocked_membership_h_ref(words, h1, h2, act_hi, act_lo, m, thi, tlo,
-                             floor_k, flags, *, k_lanes: int,
-                             nw: int = NW):
-    """Plain twin of :func:`blocked_membership_h`."""
+def blocked_encode_h_ref(bits, h1, h2, act_hi, act_lo, vals, m, thi, tlo,
+                         floor_k, *, k_lanes: int, vh: int, nw: int = NW):
+    """Plain twin of :func:`blocked_encode_h`: the hash prelude, then
+    :func:`blocked_encode_ref`'s body."""
+    a, b, act = _prelude(h1, h2, act_hi, act_lo, m, thi, tlo)
+    return blocked_encode_ref(bits, a, b, act, vals, m, floor_k,
+                              k_lanes=k_lanes, vh=vh, nw=nw)
+
+
+def blocked_membership_ref(words, a, b, act, m, floor_k, flags, *,
+                           k_lanes: int, nw: int = NW):
+    """Plain twin of :func:`blocked_membership`."""
     _check_words(words, nw)
     f_ = words.shape[0]
     filt = words32_to_bits(words[:, :, :nw])
-    a, b, m64, act = _prelude(h1, h2, act_hi, act_lo, m, thi, tlo)
-    passes = _membership(filt, a, b, m64, act, floor_k, k_lanes, nw * 32)
+    m64 = m.to(torch.int64).view(f_, 1, 1)
+    passes = _membership(filt, a.to(torch.int64), b.to(torch.int64), m64,
+                         act != 0, floor_k, k_lanes, nw * 32)
     passes &= (flags == 0).view(f_, 1, 1)
     return passes.to(torch.uint8), passes.sum(dim=-1).to(torch.int32)
+
+
+def blocked_membership_h_ref(words, h1, h2, act_hi, act_lo, m, thi, tlo,
+                             floor_k, flags, *, k_lanes: int,
+                             nw: int = NW):
+    """Plain twin of :func:`blocked_membership_h`: the hash prelude,
+    then :func:`blocked_membership_ref`'s body."""
+    a, b, act = _prelude(h1, h2, act_hi, act_lo, m, thi, tlo)
+    return blocked_membership_ref(words, a, b, act, m, floor_k, flags,
+                                  k_lanes=k_lanes, nw=nw)
 
 
 def blocked_expand_ref(passes, wit, raw_mask, flags, vseg, *, vh: int):
@@ -266,10 +288,14 @@ def _cuda_args(device, named: Dict[str, tuple]):
 
 
 def _launch(name: str, args: list, device) -> None:
+    """Launch a kernel on ``device``'s current stream, with ``device``
+    current: the runtime loads the module into, and launches in, the
+    context of the current card, which must be the tensors' own."""
     from new_bloom_filter_repo_tpu_torch.ops import _build
     lib = _build.load()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, name)(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
@@ -281,6 +307,12 @@ def _scalars(f_, m, thi, tlo, floor_k, flags=None):
     if flags is not None:
         out["flags"] = (flags, torch.int32, (f_,))
     return out
+
+
+def _mod_tables(f_, nb, a, b, act):
+    return {"a": (a, torch.int32, (f_, nb, IPB)),
+            "b": (b, torch.int32, (f_, nb, IPB)),
+            "act": (act, torch.uint8, (f_, nb, IPB))}
 
 
 def _tables(nb, h1, h2, act_hi, act_lo):
@@ -316,12 +348,7 @@ def blocked_encode_h(bits, h1, h2, act_hi, act_lo, vals, m, thi, tlo,
     if not (1 <= nw <= NW and 1 <= vh <= 32 and k_lanes >= 0):
         raise ValueError(f"bad geometry nw={nw} vh={vh} k_lanes={k_lanes}")
     dev = bits.device
-    vslots = vh * 32
-    words = torch.empty((f_, nb, nw), dtype=torch.int32, device=dev)
-    wit = torch.empty((f_, nb, WIT_BYTES), dtype=torch.uint8, device=dev)
-    wcnt = torch.empty((f_, nb), dtype=torch.int32, device=dev)
-    vseg = torch.empty((f_, nb, vslots), dtype=torch.int32, device=dev)
-    vcnt = torch.empty((f_, nb), dtype=torch.int32, device=dev)
+    outs = _encode_outputs(f_, nb, nw, vh, dev)
     ptrs = _cuda_args(dev, {
         "bits": (bits, torch.uint8, (f_, nb, IPB)),
         **_tables(nb, h1, h2, act_hi, act_lo),
@@ -329,10 +356,10 @@ def blocked_encode_h(bits, h1, h2, act_hi, act_lo, vals, m, thi, tlo,
         **_scalars(f_, m, thi, tlo, floor_k)})
     if f_ and nb:
         _launch("nbf_k1_encode",
-                ptrs + [o.data_ptr() for o in (words, wit, wcnt, vseg, vcnt)]
-                + [f_, nb, k_lanes, nw, vslots], dev)
+                ptrs + [o.data_ptr() for o in outs]
+                + [f_, nb, k_lanes, nw, vh * 32], dev)
         blocked_encode_h.launches += 1
-    return words, wit, wcnt, vseg, vcnt
+    return outs
 
 
 def blocked_membership_h(words, h1, h2, act_hi, act_lo, m, thi, tlo,
@@ -364,6 +391,87 @@ def blocked_membership_h(words, h1, h2, act_hi, act_lo, m, thi, tlo,
                 + [passes.data_ptr(), wcnt.data_ptr(), f_, nb, k_lanes, nw],
                 dev)
         blocked_membership_h.launches += 1
+    return passes, wcnt
+
+
+def _encode_outputs(f_, nb, nw, vh, dev):
+    """Uninitialised (words, wit, wcnt, vseg, vcnt) for K1 and K5a."""
+    return (torch.empty((f_, nb, nw), dtype=torch.int32, device=dev),
+            torch.empty((f_, nb, WIT_BYTES), dtype=torch.uint8, device=dev),
+            torch.empty((f_, nb), dtype=torch.int32, device=dev),
+            torch.empty((f_, nb, vh * 32), dtype=torch.int32, device=dev),
+            torch.empty((f_, nb), dtype=torch.int32, device=dev))
+
+
+def blocked_encode(bits, a, b, act, vals, m, floor_k, *, k_lanes: int,
+                   vh: int, nw: int = NW):
+    """Blocked Bloom encode of a chunk from materialized position tables
+    (K5a): K1 without the hash prelude.
+
+    Args:
+      bits: (F, NB, IPB) uint8 change-mask bits per block.
+      a, b: (F, NB, IPB) int32 — h1 mod m, h2 mod m per frame (< m).
+      act: (F, NB, IPB) uint8 — activation-lane test results (nonzero =
+        active), as ``models.blocked_pipeline._frame_mod_tables`` makes.
+      vals: (F, NB, IPB) int32 — 24-bit packed pixel values.
+      m, floor_k: (F,) int32 per-frame sub-filter bits and floor(k).
+      k_lanes, vh, nw: as for :func:`blocked_encode_h`.
+
+    Returns what :func:`blocked_encode_h` returns; on the tables of
+    ``_frame_mod_tables`` the two are equal."""
+    if _on_cpu(bits):
+        return blocked_encode_ref(bits, a, b, act, vals, m, floor_k,
+                                  k_lanes=k_lanes, vh=vh, nw=nw)
+    f_, nb, _ = bits.shape
+    if not (1 <= nw <= NW and 1 <= vh <= 32 and k_lanes >= 0):
+        raise ValueError(f"bad geometry nw={nw} vh={vh} k_lanes={k_lanes}")
+    dev = bits.device
+    outs = _encode_outputs(f_, nb, nw, vh, dev)
+    ptrs = _cuda_args(dev, {
+        "bits": (bits, torch.uint8, (f_, nb, IPB)),
+        **_mod_tables(f_, nb, a, b, act),
+        "vals": (vals, torch.int32, (f_, nb, IPB)),
+        "m": (m, torch.int32, (f_,)),
+        "floor_k": (floor_k, torch.int32, (f_,))})
+    if f_ and nb:
+        _launch("nbf_k5a_encode",
+                ptrs + [o.data_ptr() for o in outs]
+                + [f_, nb, k_lanes, nw, vh * 32], dev)
+        blocked_encode.launches += 1
+    return outs
+
+
+def blocked_membership(words, a, b, act, m, floor_k, flags, *,
+                       k_lanes: int, nw: int = NW):
+    """Decode pass mask from materialized position tables (K5b): K2
+    without the hash prelude.
+
+    words: (F, NB, nw..NW) i32 PACKED sub-filter words; a, b: (F,NB,IPB)
+    i32 (< m); act: (F,NB,IPB) u8; m, floor_k, flags: (F,) i32.
+    Returns (passes (F,NB,IPB) u8, wcnt (F,NB) i32); the per-block pass
+    count is summed inside the kernel (an XLA pass on the TPU)."""
+    if _on_cpu(words):
+        return blocked_membership_ref(words, a, b, act, m, floor_k, flags,
+                                      k_lanes=k_lanes, nw=nw)
+    _check_words(words, nw)
+    if k_lanes < 0:
+        raise ValueError(f"bad k_lanes={k_lanes}")
+    f_, nb, wstride = words.shape
+    dev = words.device
+    passes = torch.empty((f_, nb, IPB), dtype=torch.uint8, device=dev)
+    wcnt = torch.empty((f_, nb), dtype=torch.int32, device=dev)
+    ptrs = _cuda_args(dev, {
+        "words": (words, torch.int32, (f_, nb, wstride)),
+        **_mod_tables(f_, nb, a, b, act),
+        "m": (m, torch.int32, (f_,)),
+        "floor_k": (floor_k, torch.int32, (f_,)),
+        "flags": (flags, torch.int32, (f_,))})
+    if f_ and nb:
+        _launch("nbf_k5b_membership",
+                [ptrs[0], wstride] + ptrs[1:]
+                + [passes.data_ptr(), wcnt.data_ptr(), f_, nb, k_lanes, nw],
+                dev)
+        blocked_membership.launches += 1
     return passes, wcnt
 
 
@@ -423,7 +531,7 @@ def blocked_expand_chain(passes, wit, raw_mask, flags, vseg, base_packed,
 
 
 _WRAPPERS = (blocked_encode_h, blocked_membership_h, blocked_expand_chain,
-             blocked_expand)
+             blocked_expand, blocked_encode, blocked_membership)
 
 
 def reset_launches() -> None:

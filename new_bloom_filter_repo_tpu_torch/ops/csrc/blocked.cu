@@ -1,13 +1,23 @@
 // Blocked rational-Bloom kernels for Hopper (sm_90a): K1-K4 of the
-// video codec's main path.
+// video codec's main path, and K5a/K5b of its multi-device programs.
 //
 // Each kernel replaces one Pallas kernel of
 // new_bloom_filter_repo_tpu/ops/pallas/blocked.py:
 //
-//   K1 nbf_k1_encode        <- blocked_encode_h     (_encode_kernel_h)
-//   K2 nbf_k2_membership    <- blocked_membership_h (_member_kernel_h)
-//   K3 nbf_k3_expand_chain  <- blocked_expand_chain (_expand_chain_kernel)
-//   K4 nbf_k4_expand        <- blocked_expand       (_expand_kernel)
+//   K1  nbf_k1_encode        <- blocked_encode_h     (_encode_kernel_h)
+//   K2  nbf_k2_membership    <- blocked_membership_h (_member_kernel_h)
+//   K3  nbf_k3_expand_chain  <- blocked_expand_chain (_expand_chain_kernel)
+//   K4  nbf_k4_expand        <- blocked_expand       (_expand_kernel)
+//   K5a nbf_k5a_encode       <- blocked_encode       (_encode_kernel)
+//   K5b nbf_k5b_membership   <- blocked_membership   (_member_kernel)
+//
+// K5a and K5b are K1 and K2 fed with materialized per-frame tables
+// a = h1 mod m, b = h2 mod m and act (uint8), which the caller built
+// (models/blocked_pipeline._frame_mod_tables): the bodies are shared,
+// only the per-item (a, b, lanes) come from global memory instead of
+// the hash prelude.  K5a reads ~14 B per item (bits, a, b, act, vals)
+// against K1's ~5 B plus the (NB, 1024) tables, so it moves more bytes
+// than K1 for the same output.
 //
 // The work is integer bit manipulation over 1024-item blocks: each item
 // is read and written once, so every kernel is bound by device-memory
@@ -73,10 +83,18 @@ __device__ __forceinline__ int block_rank(bool pred, int* warp_buf,
     return rank;
 }
 
-// Per-item hash prelude shared by K1 and K2: a = h1 mod m, b = h2 mod m
-// and the number of active lanes.  Lane j (0 <= j <= k_lanes) is active
-// when j < fk, or when j == fk and the u64 activation hash is below the
-// frame's threshold.  Active lanes are always a prefix 0..lanes-1.
+// Active lanes of one item: lane j (0 <= j <= k_lanes) is active when
+// j < fk, or when j == fk and the item's activation test fired.  Active
+// lanes are always a prefix 0..lanes-1.
+__device__ __forceinline__ int lanes_of(bool act, int fk, int k_lanes) {
+    int det = fk < k_lanes + 1 ? fk : k_lanes + 1;
+    if (det < 0) det = 0;
+    return det + ((act && fk >= 0 && fk <= k_lanes) ? 1 : 0);
+}
+
+// Per-item hash prelude of K1 and K2: a = h1 mod m, b = h2 mod m and
+// the number of active lanes, the activation test being the u64 hash
+// below the frame's threshold.
 __device__ __forceinline__ void prelude(
         const int32_t* __restrict__ h1, const int32_t* __restrict__ h2,
         const int32_t* __restrict__ act_hi, const int32_t* __restrict__ act_lo,
@@ -88,10 +106,7 @@ __device__ __forceinline__ void prelude(
     const uint64_t hv = ((uint64_t)(uint32_t)act_hi[tab] << 32)
                         | (uint32_t)act_lo[tab];
     const uint64_t tv = ((uint64_t)thi << 32) | tlo;
-    const bool act = hv < tv;
-    int det = fk < k_lanes + 1 ? fk : k_lanes + 1;
-    if (det < 0) det = 0;
-    *lanes = det + ((act && fk >= 0 && fk <= k_lanes) ? 1 : 0);
+    *lanes = lanes_of(hv < tv, fk, k_lanes);
 }
 
 // Membership of one item in its block's sub-filter (shared words).
@@ -109,37 +124,24 @@ __device__ __forceinline__ bool member(const uint32_t* filt, uint32_t a,
     return pass;
 }
 
-// K1: per (block, frame) Bloom encode.  grid = (NB, F), block = 1024.
-__global__ void __launch_bounds__(IPB) k1_encode(
-        const uint8_t* __restrict__ bits, const int32_t* __restrict__ h1,
-        const int32_t* __restrict__ h2, const int32_t* __restrict__ act_hi,
-        const int32_t* __restrict__ act_lo, const int32_t* __restrict__ vals,
-        const int32_t* __restrict__ m_arr, const int32_t* __restrict__ thi,
-        const int32_t* __restrict__ tlo, const int32_t* __restrict__ fk_arr,
+// Bloom encode of one (block, frame) by its CTA, given every item's
+// (a, b, lanes): OR-insert into the shared sub-filter, membership of
+// every item, witness bits of the passing items at their rank, values
+// of the changed items compacted to their rank, and the two counts.
+// Shared by K1 and K5a; `filt`, `witw`, `warp_buf` and `total_buf` are
+// the caller's shared memory.
+__device__ __forceinline__ void encode_body(
+        uint32_t a, uint32_t b, int lanes, int m, bool changed,
+        const int32_t* __restrict__ vals, size_t row, int nw, int vslots,
         int32_t* __restrict__ words, uint8_t* __restrict__ wit,
         int32_t* __restrict__ wcnt, int32_t* __restrict__ vseg,
-        int32_t* __restrict__ vcnt, int nb, int k_lanes, int nw,
-        int vslots) {
-    __shared__ uint32_t filt[NW];
-    __shared__ uint32_t witw[WW];
-    __shared__ int warp_buf[32];
-    __shared__ int total_buf;
+        int32_t* __restrict__ vcnt, uint32_t* filt, uint32_t* witw,
+        int* warp_buf, int* total_buf) {
     const int t = threadIdx.x;
-    const int blk = blockIdx.x;
-    const int f = blockIdx.y;
-    const size_t row = (size_t)f * nb + blk;
     const size_t item = row * IPB + t;
-    const size_t tab = (size_t)blk * IPB + t;
     if (t < NW) filt[t] = 0u;
     if (t < WW) witw[t] = 0u;
-
-    const int m = m_arr[f];
-    uint32_t a, b;
-    int lanes;
-    prelude(h1, h2, act_hi, act_lo, tab, m, (uint32_t)thi[f],
-            (uint32_t)tlo[f], fk_arr[f], k_lanes, &a, &b, &lanes);
     const uint32_t cap = 32u * (uint32_t)nw;
-    const bool changed = bits[item] != 0;
     __syncthreads();                                  // filt, witw zeroed
 
     if (changed) {                                    // OR-insert
@@ -156,9 +158,9 @@ __global__ void __launch_bounds__(IPB) k1_encode(
     if (t < nw) words[row * nw + t] = (int32_t)filt[t];
 
     int npass, nchg;
-    const int r = block_rank(pass, warp_buf, &total_buf, &npass);
+    const int r = block_rank(pass, warp_buf, total_buf, &npass);
     if (pass && changed) atomicOr(&witw[r >> 5], 1u << (31 - (r & 31)));
-    const int slot = block_rank(changed, warp_buf, &total_buf, &nchg);
+    const int slot = block_rank(changed, warp_buf, total_buf, &nchg);
     int32_t* vrow = vseg + row * vslots;
     if (changed && slot < vslots) vrow[slot] = vals[item];
     if (t >= nchg && t < vslots) vrow[t] = 0;       // tail beyond vcnt
@@ -173,8 +175,76 @@ __global__ void __launch_bounds__(IPB) k1_encode(
     }
 }
 
-// K2: per (block, frame) decode pass mask, with the per-block pass count
-// fused in.  grid = (NB, F), block = 1024.
+// K1: per (block, frame) Bloom encode with the hash prelude.
+// grid = (NB, F), block = 1024.
+__global__ void __launch_bounds__(IPB) k1_encode(
+        const uint8_t* __restrict__ bits, const int32_t* __restrict__ h1,
+        const int32_t* __restrict__ h2, const int32_t* __restrict__ act_hi,
+        const int32_t* __restrict__ act_lo, const int32_t* __restrict__ vals,
+        const int32_t* __restrict__ m_arr, const int32_t* __restrict__ thi,
+        const int32_t* __restrict__ tlo, const int32_t* __restrict__ fk_arr,
+        int32_t* __restrict__ words, uint8_t* __restrict__ wit,
+        int32_t* __restrict__ wcnt, int32_t* __restrict__ vseg,
+        int32_t* __restrict__ vcnt, int nb, int k_lanes, int nw,
+        int vslots) {
+    __shared__ uint32_t filt[NW];
+    __shared__ uint32_t witw[WW];
+    __shared__ int warp_buf[32];
+    __shared__ int total_buf;
+    const int blk = blockIdx.x;
+    const int f = blockIdx.y;
+    const size_t row = (size_t)f * nb + blk;
+    const size_t tab = (size_t)blk * IPB + threadIdx.x;
+    const int m = m_arr[f];
+    uint32_t a, b;
+    int lanes;
+    prelude(h1, h2, act_hi, act_lo, tab, m, (uint32_t)thi[f],
+            (uint32_t)tlo[f], fk_arr[f], k_lanes, &a, &b, &lanes);
+    encode_body(a, b, lanes, m, bits[row * IPB + threadIdx.x] != 0, vals,
+                row, nw, vslots, words, wit, wcnt, vseg, vcnt, filt, witw,
+                warp_buf, &total_buf);
+}
+
+// K5a: K1 on materialized (F, NB, 1024) a, b and act.
+// grid = (NB, F), block = 1024.
+__global__ void __launch_bounds__(IPB) k5a_encode(
+        const uint8_t* __restrict__ bits, const int32_t* __restrict__ a_arr,
+        const int32_t* __restrict__ b_arr, const uint8_t* __restrict__ act,
+        const int32_t* __restrict__ vals, const int32_t* __restrict__ m_arr,
+        const int32_t* __restrict__ fk_arr, int32_t* __restrict__ words,
+        uint8_t* __restrict__ wit, int32_t* __restrict__ wcnt,
+        int32_t* __restrict__ vseg, int32_t* __restrict__ vcnt, int nb,
+        int k_lanes, int nw, int vslots) {
+    __shared__ uint32_t filt[NW];
+    __shared__ uint32_t witw[WW];
+    __shared__ int warp_buf[32];
+    __shared__ int total_buf;
+    const int f = blockIdx.y;
+    const size_t row = (size_t)f * nb + blockIdx.x;
+    const size_t item = row * IPB + threadIdx.x;
+    const int lanes = lanes_of(act[item] != 0, fk_arr[f], k_lanes);
+    encode_body((uint32_t)a_arr[item], (uint32_t)b_arr[item], lanes,
+                m_arr[f], bits[item] != 0, vals, row, nw, vslots, words,
+                wit, wcnt, vseg, vcnt, filt, witw, warp_buf, &total_buf);
+}
+
+// Decode pass mask of one (block, frame) by its CTA, given every item's
+// (a, b, lanes), with the per-block pass count fused in.  Shared by K2
+// and K5b; `filt` is the caller's shared memory, already loaded with
+// the block's words (the caller syncs).
+__device__ __forceinline__ void membership_body(
+        uint32_t a, uint32_t b, int lanes, int m, bool flagged, size_t row,
+        int nw, const uint32_t* filt, uint8_t* __restrict__ passes,
+        int32_t* __restrict__ wcnt) {
+    const bool pass = !flagged
+        && member(filt, a, b, (uint32_t)m, lanes, 32u * (uint32_t)nw);
+    passes[row * IPB + threadIdx.x] = pass ? 1 : 0;
+    const int cnt = __syncthreads_count(pass);
+    if (threadIdx.x == 0) wcnt[row] = cnt;
+}
+
+// K2: per (block, frame) decode pass mask with the hash prelude.
+// grid = (NB, F), block = 1024.
 __global__ void __launch_bounds__(IPB) k2_membership(
         const int32_t* __restrict__ words, int wstride,
         const int32_t* __restrict__ h1, const int32_t* __restrict__ h2,
@@ -196,11 +266,31 @@ __global__ void __launch_bounds__(IPB) k2_membership(
     prelude(h1, h2, act_hi, act_lo, tab, m, (uint32_t)thi[f],
             (uint32_t)tlo[f], fk_arr[f], k_lanes, &a, &b, &lanes);
     __syncthreads();
-    const bool pass = flags[f] == 0
-        && member(filt, a, b, (uint32_t)m, lanes, 32u * (uint32_t)nw);
-    passes[row * IPB + t] = pass ? 1 : 0;
-    const int cnt = __syncthreads_count(pass);
-    if (t == 0) wcnt[row] = cnt;
+    membership_body(a, b, lanes, m, flags[f] != 0, row, nw, filt, passes,
+                    wcnt);
+}
+
+// K5b: K2 on materialized (F, NB, 1024) a, b and act.
+// grid = (NB, F), block = 1024.
+__global__ void __launch_bounds__(IPB) k5b_membership(
+        const int32_t* __restrict__ words, int wstride,
+        const int32_t* __restrict__ a_arr, const int32_t* __restrict__ b_arr,
+        const uint8_t* __restrict__ act, const int32_t* __restrict__ m_arr,
+        const int32_t* __restrict__ fk_arr, const int32_t* __restrict__ flags,
+        uint8_t* __restrict__ passes, int32_t* __restrict__ wcnt, int nb,
+        int k_lanes, int nw) {
+    __shared__ uint32_t filt[NW];
+    const int t = threadIdx.x;
+    const int f = blockIdx.y;
+    const size_t row = (size_t)f * nb + blockIdx.x;
+    const size_t item = row * IPB + t;
+    if (t < nw) filt[t] = (uint32_t)words[row * wstride + t];
+    const int lanes = lanes_of(act[item] != 0, fk_arr[f], k_lanes);
+    const uint32_t a = (uint32_t)a_arr[item];
+    const uint32_t b = (uint32_t)b_arr[item];
+    __syncthreads();
+    membership_body(a, b, lanes, m_arr[f], flags[f] != 0, row, nw, filt,
+                    passes, wcnt);
 }
 
 // Change mask and value of one item of one frame (K3 and K4): a passing
@@ -323,6 +413,32 @@ int nbf_k4_expand(const void* passes, const void* wit, const void* raw,
         (const uint8_t*)passes, (const uint8_t*)wit, (const uint8_t*)raw,
         (const int32_t*)flags, (const int32_t*)vseg, (uint8_t*)mask_out,
         (int32_t*)vals_out, nb, vslots);
+    return (int)cudaGetLastError();
+}
+
+int nbf_k5a_encode(const void* bits, const void* a, const void* b,
+                   const void* act, const void* vals, const void* m,
+                   const void* fk, void* words, void* wit, void* wcnt,
+                   void* vseg, void* vcnt, int nf, int nb, int k_lanes,
+                   int nw, int vslots, void* stream) {
+    k5a_encode<<<dim3(nb, nf), IPB, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)bits, (const int32_t*)a, (const int32_t*)b,
+        (const uint8_t*)act, (const int32_t*)vals, (const int32_t*)m,
+        (const int32_t*)fk, (int32_t*)words, (uint8_t*)wit, (int32_t*)wcnt,
+        (int32_t*)vseg, (int32_t*)vcnt, nb, k_lanes, nw, vslots);
+    return (int)cudaGetLastError();
+}
+
+int nbf_k5b_membership(const void* words, int wstride, const void* a,
+                       const void* b, const void* act, const void* m,
+                       const void* fk, const void* flags, void* passes,
+                       void* wcnt, int nf, int nb, int k_lanes, int nw,
+                       void* stream) {
+    k5b_membership<<<dim3(nb, nf), IPB, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)words, wstride, (const int32_t*)a,
+        (const int32_t*)b, (const uint8_t*)act, (const int32_t*)m,
+        (const int32_t*)fk, (const int32_t*)flags, (uint8_t*)passes,
+        (int32_t*)wcnt, nb, k_lanes, nw);
     return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""K1-K4 and the port's main path on an NVIDIA card.
+"""K1-K5b and the port's main and mesh paths on an NVIDIA card.
 
 Marked ``cuda``: each test skips without a card.  On the card, run
 
@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as bp
 from new_bloom_filter_repo_tpu_torch.models.video import (
     ImprovedVideoCompressor,
 )
 from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+from new_bloom_filter_repo_tpu_torch.parallel.mesh import make_mesh
 from new_bloom_filter_repo_tpu_torch.utils.synthetic import (
     SUITE,
     generate_frames,
@@ -93,7 +95,46 @@ def test_kernels_equal_twins(dev, flagged):
     assert bk.launches() == {"blocked_encode_h": 1,
                              "blocked_membership_h": 1,
                              "blocked_expand_chain": 1,
-                             "blocked_expand": 1}
+                             "blocked_expand": 1,
+                             "blocked_encode": 0,
+                             "blocked_membership": 0}
+
+
+@pytest.mark.parametrize("flagged", [False, True])
+def test_k5_kernels_equal_twins_and_k1_k2(dev, flagged):
+    args, kw = encode_args(dev, seed=1)
+    bits, h1, h2, ahi, alo, vals, m, thi, tlo, fk = args
+    a, b, act = bp._frame_mod_tables(h1, h2, ahi, alo, m, thi, tlo)
+    enc5 = (bits, a, b, act, vals, m, fk)
+    got = bk.blocked_encode(*enc5, **kw)
+    same(got, bk.blocked_encode_ref(*enc5, **kw))
+    same(got, bk.blocked_encode_h(*args, **kw))
+    words = got[0]
+    flags = torch.zeros(bits.shape[0], dtype=torch.int32, device=dev)
+    if flagged:
+        flags[::2] = 1
+    mem5 = (words, a, b, act, m, fk, flags)
+    got = bk.blocked_membership(*mem5, k_lanes=12, nw=12)
+    same(got, bk.blocked_membership_ref(*mem5, k_lanes=12, nw=12))
+    same(got, bk.blocked_membership_h(words, h1, h2, ahi, alo, m, thi, tlo,
+                                      fk, flags, k_lanes=12, nw=12))
+    torch.cuda.synchronize()
+
+
+def test_devices_mesh_stream_equals_one_device(dev, tmp_path):
+    frames = generate_frames(16, 96, 80, seed=0, **SUITE["pan"])
+    one = str(tmp_path / "one.bfvc")
+    ImprovedVideoCompressor(device=dev).compress_video(frames, one)
+    n = torch.cuda.device_count()
+    cards = [torch.device("cuda", i % n) for i in range(4)]
+    for dp, sp in [(2, 2), (4, 1), (1, 4)]:
+        path = str(tmp_path / f"m{dp}{sp}.bfvc")
+        comp = ImprovedVideoCompressor(devices=make_mesh(dp, sp, cards))
+        comp.compress_video(frames, path)
+        with open(one, "rb") as a, open(path, "rb") as b:
+            assert a.read() == b.read()
+        for g, w in zip(comp.decompress_video(path), frames):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_wrapper_raises_instead_of_falling_back(dev):

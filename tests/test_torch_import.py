@@ -30,6 +30,9 @@ def test_port_and_chip_smoke_import_without_jax():
         "import new_bloom_filter_repo_tpu_torch.models.video\n"
         "import new_bloom_filter_repo_tpu_torch.ops.blocked\n"
         "import new_bloom_filter_repo_tpu_torch.ops._build\n"
+        "import new_bloom_filter_repo_tpu_torch.parallel.mesh\n"
+        "import new_bloom_filter_repo_tpu_torch.parallel.blocked_batch\n"
+        "import new_bloom_filter_repo_tpu_torch.graft_entry\n"
         "import chip_smoke\n"
         "assert p.ImprovedVideoCompressor.__module__.endswith('video')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
@@ -59,7 +62,8 @@ def test_no_jax_import_in_port_sources():
 
 @pytest.mark.parametrize("kwargs", [
     {"mode": "keyframe"}, {"profile": "planar"}, {"profile": "bfv2"},
-    {"exact": False}, {"devices": 2}, {"devices": "auto"},
+    {"exact": False}, {"devices": 2, "profile": "bfv2"},
+    {"devices": "auto", "exact": False},
 ])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):

@@ -1,4 +1,4 @@
-"""The PyTorch port's blocked kernels K1-K4 against the JAX Pallas kernels.
+"""The PyTorch port's blocked kernels K1-K5b against the JAX Pallas kernels.
 
 On the CPU the port's wrappers run their plain PyTorch twins; the JAX
 kernels run in Pallas interpret mode (tests/conftest.py pins JAX to the
@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from new_bloom_filter_repo_tpu.models import blocked_pipeline as jbp
 from new_bloom_filter_repo_tpu.ops.pallas import blocked as jbk
+from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as tbp
 from new_bloom_filter_repo_tpu_torch.ops import blocked as tbk
 
 IPB = 1024
@@ -233,4 +235,120 @@ def test_cpu_calls_do_not_count_launches():
     assert tbk.launches() == {"blocked_encode_h": 0,
                               "blocked_membership_h": 0,
                               "blocked_expand_chain": 0,
-                              "blocked_expand": 0}
+                              "blocked_expand": 0,
+                              "blocked_encode": 0,
+                              "blocked_membership": 0}
+
+
+# ---------------------------------------------------------------------------
+# K5a / K5b: the kernels on materialized position tables
+# ---------------------------------------------------------------------------
+
+K5_CASES = {
+    # (F, NB, m per frame, floor_k per frame, change density, act density)
+    "f3_nb8": (3, 8, [16, 100, 384], [0, 2, 3], [0.02, 0.06, 0.2], 0.3),
+    "f4_nb16": (4, 16, [100, 384, 16, 100], [1, 3, 0, 2],
+                [0.01, 0.1, 0.003, 0.25], 0.4),
+}
+
+
+@pytest.fixture(params=sorted(K5_CASES), scope="module")
+def k5case(request):
+    f, nb, ms, fks, dens, act_dens = K5_CASES[request.param]
+    rng = np.random.default_rng(10 + sorted(K5_CASES).index(request.param))
+    m = np.asarray(ms, np.int32)
+    fk = np.asarray(fks, np.int32)
+    bits = (rng.random((f, nb, IPB))
+            < np.asarray(dens).reshape(-1, 1, 1)).astype(np.uint8)
+    a = np.stack([rng.integers(0, mm, (nb, IPB)) for mm in ms]
+                 ).astype(np.int32)
+    b = np.stack([rng.integers(0, mm, (nb, IPB)) for mm in ms]
+                 ).astype(np.int32)
+    act = (rng.random((f, nb, IPB)) < act_dens).astype(np.uint8)
+    vals = rng.integers(0, 1 << 24, (f, nb, IPB)).astype(np.int32)
+    kmax = int(fk.max())
+    nw = (int(m.max()) + 31) // 32
+    vh = 32 if int(bits.sum(axis=2).max()) > 128 else 4
+    jout = [n(x) for x in jbk.blocked_encode(
+        bits, a, b, act, vals, m, fk, k_lanes=jbk.k_bucket(kmax), vh=vh,
+        nw=jbk.nw_bucket(int(m.max())))]
+    targs = tuple(t(x) for x in (bits, a, b, act, vals, m, fk))
+    tout = [n(x) for x in tbk.blocked_encode(*targs, k_lanes=kmax, vh=vh,
+                                              nw=nw)]
+    return {"bits": bits, "kmax": kmax, "nw": nw, "vh": vh, "jout": jout,
+            "tout": tout, "targs": targs}
+
+
+def test_k5a_encode_matches_pallas(k5case):
+    jw, jwit, jwcnt, jvseg, jvcnt = k5case["jout"]
+    tw, twit, twcnt, tvseg, tvcnt = k5case["tout"]
+    nw = k5case["nw"]
+    assert tw.dtype == np.int32 and tw.shape[-1] == nw
+    np.testing.assert_array_equal(tw, jw[..., :nw])
+    np.testing.assert_array_equal(twit, jwit)
+    np.testing.assert_array_equal(twcnt, jwcnt)
+    np.testing.assert_array_equal(tvcnt, jvcnt)
+    live = np.arange(tvseg.shape[-1]) < np.minimum(
+        tvcnt, tvseg.shape[-1])[..., None]
+    np.testing.assert_array_equal(tvseg[live], jvseg[live])
+    assert (tvseg[~live] == 0).all()
+    assert (twcnt >= k5case["bits"].sum(axis=2)).all()
+
+
+@pytest.mark.parametrize("flagged", [False, True])
+def test_k5b_membership_matches_pallas(k5case, flagged):
+    jw = k5case["jout"][0]
+    bits, a, b, act, _, m, fk = k5case["targs"]
+    f = jw.shape[0]
+    flags = np.zeros(f, np.int32)
+    if flagged:
+        flags[1::2] = 1
+    jp, jc = jbk.blocked_membership(
+        jw, n(a), n(b), n(act), n(m), n(fk), flags,
+        k_lanes=jbk.k_bucket(k5case["kmax"]),
+        nw=jbk.nw_bucket(int(n(m).max())))
+    words = np.zeros(jw.shape[:2] + (tbk.NW,), np.int32)
+    words[..., :jw.shape[-1]] = jw
+    tp, tc = tbk.blocked_membership(t(words), a, b, act, m, fk, t(flags),
+                                    k_lanes=k5case["kmax"],
+                                    nw=k5case["nw"])
+    assert tp.dtype == torch.uint8 and tc.dtype == torch.int32
+    np.testing.assert_array_equal(n(tp), n(jp))
+    np.testing.assert_array_equal(n(tc), n(jc))
+    if not flagged:     # every changed item passes its own filter
+        assert (n(tp)[n(bits) > 0] == 1).all()
+
+
+def test_frame_mod_tables_match_jax(case):
+    tab, m, thi, tlo = case["tab"], case["m"], case["thi"], case["tlo"]
+    want = jbp._frame_mod_tables(tab["h1"], tab["h2"], tab["act_hi"],
+                                 tab["act_lo"], m, thi, tlo)
+    got = tbp._frame_mod_tables(*case["targs"][1:5], t(m), t(thi), t(tlo))
+    assert [g.dtype for g in got] == [torch.int32, torch.int32, torch.uint8]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(n(g), n(w))
+
+
+@pytest.mark.parametrize("flagged", [False, True])
+def test_k5_twins_equal_k1_k2_twins_on_mod_tables(case, flagged):
+    """K5a on ``_frame_mod_tables`` equals K1 and K5b equals K2: what
+    ties the multi-device kernels to the stream."""
+    targs = case["targs"]
+    bits, h1, h2, ahi, alo, vals, m, thi, tlo, fk = targs
+    a, b, act = tbp._frame_mod_tables(h1, h2, ahi, alo, m, thi, tlo)
+    kw = {"k_lanes": case["kmax"], "vh": case["vh"], "nw": case["nw"]}
+    got = tbk.blocked_encode_ref(bits, a, b, act, vals, m, fk, **kw)
+    for g, w in zip(got, case["tout"]):
+        np.testing.assert_array_equal(n(g), w)
+    flags = torch.zeros(m.shape[0], dtype=torch.int32)
+    if flagged:
+        flags[0] = 1
+    words = got[0]
+    mem = tbk.blocked_membership_ref(words, a, b, act, m, fk, flags,
+                                     k_lanes=case["kmax"], nw=case["nw"])
+    mem_h = tbk.blocked_membership_h_ref(words, h1, h2, ahi, alo, m, thi,
+                                         tlo, fk, flags,
+                                         k_lanes=case["kmax"],
+                                         nw=case["nw"])
+    for g, w in zip(mem, mem_h):
+        assert torch.equal(g, w)

@@ -21,6 +21,8 @@ from new_bloom_filter_repo_tpu_torch.models.video import (
     _plan_segments,
     verify_lossless,
 )
+from new_bloom_filter_repo_tpu_torch.parallel.mesh import make_mesh
+from test_video_api import make_video
 from new_bloom_filter_repo_tpu_torch.utils import container
 from new_bloom_filter_repo_tpu_torch.utils.synthetic import (
     SUITE,
@@ -159,3 +161,20 @@ def test_verify_lossless_reports_differences():
     assert not res["lossless"] and res["diff_frames"] == [1]
     assert verify_lossless(frames, frames[:2])["lossless"] is False
     assert verify_lossless(frames, frames)["exact_frame_matches"] == 3
+
+
+@pytest.mark.parametrize("name", ["make_video", "pan"])
+def test_devices_mesh_bfvc_equals_jax_single_device(tmp_path, name):
+    """devices= on a (2, 2) CPU mesh: the port's stream equals the JAX
+    package's single-device file byte for byte, decodes bit-exactly
+    through the mesh, and the JAX package decodes it too."""
+    frames = (make_video(n=20, h=48, w=64, seed=7) if name == "make_video"
+              else clip("pan", 20, 64, 48))
+    jpath, tpath = str(tmp_path / "jax.bfvc"), str(tmp_path / "mesh.bfvc")
+    JaxCompressor().compress_video(frames, jpath)
+    comp = ImprovedVideoCompressor(devices=make_mesh(2, 2, ["cpu"] * 4))
+    comp.compress_video(frames, tpath)
+    with open(jpath, "rb") as a, open(tpath, "rb") as b:
+        assert a.read() == b.read(), f"{name}: .bfvc bytes differ"
+    assert_frames_equal(comp.decompress_video(tpath), frames)
+    assert_frames_equal(JaxCompressor().decompress_video(tpath), frames)
