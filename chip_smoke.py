@@ -35,13 +35,11 @@ each against its plain PyTorch twin on the card.  Phases:
 Phases 3-4, 6 and 7 are the paths: every kernel's launch count is set
 to 0 just before each and read just after, and a kernel its path must
 launch that it did not fails the run (K1-K4 on phases 3-4; K5a, K5b
-and K4 on phase 6; K1, K2 and K4 on phase 7).  Every phase that fails
-raises; nothing falls back to the CPU.  The second-to-last lines are
-the per-kernel JSON (launches summed over the three path runs) and the
+and K4 on phase 6; K1-K4 on phase 7).  Every phase that fails raises;
+nothing falls back to the CPU.  The second-to-last lines are the
+per-kernel JSON (launches summed over the three path runs) and the
 card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  Exits non-zero without a CUDA card.
-``--mesh-only`` runs phases 1, 3-4, 6 and 7 alone, on a machine with
-several cards, and prints no result line.
 """
 
 from __future__ import annotations
@@ -470,21 +468,13 @@ def phase_devices(dev, bench, pan, tmp, card):
         log("    .bfvc byte-identical to the single-device file")
     return path_launches("devices=", ["blocked_encode_h",
                                       "blocked_membership_h",
+                                      "blocked_expand_chain",
                                       "blocked_expand"])
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mesh-only", action="store_true",
-                    help="run phases 1, 3-4 (the single-device streams "
-                         "the mesh streams are held to), 6 and 7 only, for "
-                         "a machine with several cards; prints no result "
-                         "line")
-    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script runs only on a CUDA card", file=sys.stderr)
@@ -516,22 +506,17 @@ def main(argv=None) -> int:
                                     **synthetic.SUITE["pan"])
     log(f"  clips generated on the host in {time.perf_counter() - t0:.2f} s")
 
-    if not args.mesh_only:
-        log(f"phase 2 kernels vs twins at 1080p chunk shapes ({smi}):")
-        stats = phase_kernels(dev, bench)
+    log(f"phase 2 kernels vs twins at 1080p chunk shapes ({smi}):")
+    stats = phase_kernels(dev, bench)
     with tempfile.TemporaryDirectory() as tmp:
         log("phases 3-4 main path:")
         runs = [phase_main_path(dev, bench, pan, tmp, smi)]
-        if not args.mesh_only:
-            log("phase 5 parity:")
-            phase_parity(dev, tmp)
+        log("phase 5 parity:")
+        phase_parity(dev, tmp)
         log(f"phase 6 mesh dry run ({smi}):")
         runs.append(phase_dryrun(nb=2032))
         log(f"phase 7 devices= ({smi}):")
         runs.append(phase_devices(dev, bench, pan, tmp, smi))
-    if args.mesh_only:
-        log(f"mesh-only run OK on {torch.cuda.device_count()} cards")
-        return 0
     launches = {n: sum(r[n] for r in runs) for n in KERNELS}
 
     kernels = [{"name": f"{KERNELS[n][0]} {n}", "route": "cuda",

@@ -15,11 +15,11 @@ Every tensor lives on the ``device`` the encoder or decoder was built
 with; CPU tensors take the kernels' plain twins.  Built with a ``mesh``
 (``parallel/mesh.py``) of more than one cell, both route phase A and
 the kernels through the frame- and block-sharded programs of
-``parallel/blocked_batch.py`` (:class:`_MeshDispatch`), gather the
-results on the mesh's home device, and decode with K4 and a chain of
-torch ops instead of K3; the stream is byte-identical with or without a
-mesh.  Record selection and the host ``finish()`` phase are the
-reference's, unchanged:
+``parallel/blocked_batch.py`` (:class:`_MeshDispatch`) and gather the
+results on the mesh's home device; K3, which chains each block column
+through the whole chunk, runs there unsharded.  The stream is
+byte-identical with or without a mesh.  Record selection and the host
+``finish()`` phase are the reference's, unchanged:
 
   count == 0                  -> EMPTY (type 2)
   density > 0.45              -> DPCM residual (type 8) or keyframe,
@@ -500,15 +500,6 @@ def _chain_apply_motion(base: torch.Tensor, masks, vals, shifts, *, shape):
         prev = torch.where(m2[j] > 0, v2[j], rolled)
         out.append(prev)
     return _unpack_frames(torch.stack(out), shape=shape)
-
-
-def _chain_apply(base: torch.Tensor, masks, vals, *, shape):
-    """Apply decoded per-frame (mask, packed-value) deltas as a chain:
-    frame_j = where(mask_j, vals_j, frame_{j-1}).  The decode chain
-    under a mesh, where K4 expands the shards and K3 is not used."""
-    return _chain_apply_motion(base, masks, vals,
-                               np.zeros((masks.shape[0], 2), np.int64),
-                               shape=shape)
 
 
 def _vh_bucket(max_count: int) -> int:
@@ -2063,7 +2054,8 @@ class BlockedDecoder:
     type-6 wrapped) through the blocked kernels on ``device``; returns
     reconstructed frames.
 
-    ``mesh`` shards membership and expansion like :class:`BlockedEncoder`."""
+    ``mesh`` shards membership, and the K4 expansion of runs with motion,
+    like :class:`BlockedEncoder`; K3 runs on the home device."""
 
     def __init__(self, device=None, mesh=None):
         self.device = home_device(mesh, device)
@@ -2345,23 +2337,20 @@ class BlockedDecoder:
         flags_d = torch.from_numpy(flags).to(dev)
         base_d = (base if torch.is_tensor(base)
                   else torch.from_numpy(np.array(base, np.uint8)).to(dev))
-        if self.dispatch is not None:
-            # under a mesh: sharded K4, then the chain on the home device
-            mask_d, vals_d = self.dispatch.expand(passes_d, wit_d, raw_d,
-                                                  flags_d, vbytes_d, vh=vh,
-                                                  channels=channels)
-            if bool(shifts.any()):
-                frames_d = _chain_apply_motion(base_d, mask_d, vals_d,
-                                               shifts, shape=shape)
+        if bool(shifts.any()):
+            if self.dispatch is not None:
+                mask_d, vals_d = self.dispatch.expand(
+                    passes_d, wit_d, raw_d, flags_d, vbytes_d, vh=vh,
+                    channels=channels)
             else:
-                frames_d = _chain_apply(base_d, mask_d, vals_d, shape=shape)
-        elif bool(shifts.any()):
-            vseg_d = _unpack_vseg_bytes(vbytes_d, channels)
-            mask_d, vals_d = bk.blocked_expand(passes_d, wit_d, raw_d,
-                                               flags_d, vseg_d, vh=vh)
+                mask_d, vals_d = bk.blocked_expand(
+                    passes_d, wit_d, raw_d, flags_d,
+                    _unpack_vseg_bytes(vbytes_d, channels), vh=vh)
             frames_d = _chain_apply_motion(base_d, mask_d, vals_d, shifts,
                                            shape=shape)
         else:
+            # K3 chains every block column through the chunk, so it runs
+            # unsharded on the home device, with or without a mesh
             packed = bk.blocked_expand_chain(
                 passes_d, wit_d, raw_d, flags_d,
                 _unpack_vseg_bytes(vbytes_d, channels),

@@ -15,8 +15,9 @@ axis over sp (``torch.tensor_split``: shards may be uneven or empty),
 moves each shard to its mesh device (a replicated argument is copied
 once per distinct device), calls the wrapper on each shard, and
 concatenates the results on the mesh's home device.  Kernel launches
-are asynchronous, so shards on distinct cards run at the same time; the
-gathering copies order themselves after the work on each card.  Shards
+are asynchronous, so shards on distinct cards are meant to run at the
+same time (not yet measured); the gathering copies order themselves
+after the work on each card.  Shards
 with no frame or no block are not launched.  Where JAX's ``shard_map``
 needed equal shards, and the pipeline padded for it, nothing is padded
 here.

@@ -62,8 +62,7 @@ def test_no_jax_import_in_port_sources():
 
 @pytest.mark.parametrize("kwargs", [
     {"mode": "keyframe"}, {"profile": "planar"}, {"profile": "bfv2"},
-    {"exact": False}, {"devices": 2, "profile": "bfv2"},
-    {"devices": "auto", "exact": False},
+    {"exact": False},
 ])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):

@@ -4,15 +4,13 @@ Meshes repeat the CPU device (``make_mesh(dp, sp, ["cpu"] * dp * sp)``),
 the counterpart of the JAX tests' virtual host devices, so each shard
 runs the kernels' plain twins.  Every sharded program must equal the
 unsharded wrapper on the same seeded inputs, exactly, for uneven shards
-and empty shards too; the mesh decode chain is held to the JAX
-package's ``_chain_apply``.
+and empty shards too.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from new_bloom_filter_repo_tpu.models import blocked_pipeline as jbp
 from new_bloom_filter_repo_tpu_torch import graft_entry
 from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as bp
 from new_bloom_filter_repo_tpu_torch.models.video import (
@@ -220,18 +218,36 @@ def test_mesh_dispatch_phase_a_under_dp(dp):
                  bp._motion_counts_pair(stacked[:-1], stacked[1:], 4))
 
 
-@pytest.mark.parametrize("gray", [False, True])
-def test_chain_apply_matches_jax(gray):
-    rng = np.random.default_rng(2)
-    shape = (24, 40) if gray else (24, 40, 3)
-    f, nb = 4, 1
-    base = rng.integers(0, 256, shape, dtype=np.uint8)
-    masks = (rng.random((f, nb, IPB)) < 0.3).astype(np.uint8)
-    vals = rng.integers(0, 1 << 24, (f, nb, IPB)).astype(np.int32)
-    want = jbp._chain_apply(base, masks, vals, shape=shape)
-    got = bp._chain_apply(torch.from_numpy(base), torch.from_numpy(masks),
-                          torch.from_numpy(vals), shape=shape)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+@pytest.mark.parametrize("name", ["static_gentle", "pan"])
+def test_mesh_decode_routes(monkeypatch, tmp_path, name):
+    """Under a mesh, runs without motion decode through K3 on the home
+    device and runs with motion through the sharded K4 and the roll
+    chain; both bit-exact."""
+    frames = generate_frames(16, 64, 48, seed=0, **SUITE[name])
+    comp = ImprovedVideoCompressor(devices=cpu_mesh(2, 2))
+    path = str(tmp_path / "mesh.bfvc")
+    comp.compress_video(frames, path)
+    calls = {"k3": 0, "k4": 0}
+    k3, k4 = bk.blocked_expand_chain, bp._MeshDispatch.expand
+
+    def spy_k3(*args, **kw):
+        calls["k3"] += 1
+        return k3(*args, **kw)
+
+    def spy_k4(self, *args, **kw):
+        calls["k4"] += 1
+        return k4(self, *args, **kw)
+
+    monkeypatch.setattr(bk, "blocked_expand_chain", spy_k3)
+    monkeypatch.setattr(bp._MeshDispatch, "expand", spy_k4)
+    dec = comp.decompress_video(path)
+    assert len(dec) == len(frames)
+    for got, want in zip(dec, frames):
+        np.testing.assert_array_equal(np.asarray(got), want)
+    if name == "pan":
+        assert calls["k4"] > 0
+    else:
+        assert calls["k3"] > 0 and calls["k4"] == 0
 
 
 # ---------------------------------------------------------------------------
