@@ -5,23 +5,29 @@
 
 Drives the port's main path, ``ImprovedVideoCompressor(device="cuda")``
 (blocked profile, exact, motion on), through ``compress_video`` and
-``decompress_video`` at 1080p, and its multi-device paths (the mesh dry
-run and ``devices=``), after building the hand-written Hopper kernels
-K1-K5b from ``new_bloom_filter_repo_tpu_torch/ops/csrc`` and holding
-each against its plain PyTorch twin on the card.  Phases:
+``decompress_video`` at 1080p, its multi-device paths (the mesh dry
+runs and ``devices=``) and its other profiles and modes, after building
+the hand-written Hopper kernels K1-K5b from
+``new_bloom_filter_repo_tpu_torch/ops/csrc`` and holding each against
+its plain PyTorch twin on the card.  Phases:
 
 1. device: the card, its power limit, the kernel build;
 2. kernel vs twin at the 1080p chunk shapes (F = 15, NB = 2032), on the
    inputs of a real chunk and on a mix with edge-case filter widths,
-   pass-through flags and raw masks; exact equality (tolerance 0); K5a
-   and K5b run on the ``_frame_mod_tables`` of the same inputs and must
-   also equal K1 and K2;
+   pass-through flags and raw masks, and at the shapes the other paths
+   give the kernels: the first chunk of the phase-8 U plane (960x540,
+   NB = 507) and of each phase-9 clip's byte view (NB = 12150, 24300
+   and 8100); exact equality (tolerance 0); K5a and K5b run on the
+   ``_frame_mod_tables`` of the same inputs and must also equal K1 and
+   K2;
 3. the bench clip (1920x1080x3, 31 frames), round trip bit-exact;
 4. the synthetic ``pan`` clip (seed 0, 31 frames, 1080p), round trip
    bit-exact, with type-6 motion records;
-5. a CIF clip encoded on the card and on the CPU (the twins) to
-   identical ``.bfvc`` bytes, and the committed JAX-written fixture
-   decoded bit-exactly;
+5. CIF clips (352x288, 16 frames) encoded on the card and on the CPU
+   (the twins and the CPU torch ops) to identical ``.bfvc`` bytes: the
+   blocked profile, ``profile="planar"`` (I420), uint16 frames (the
+   byte view), ``profile="bfv2"`` and ``exact=False``; and the committed
+   JAX-written fixture decoded bit-exactly;
 6. the mesh dry run ``graft_entry.dryrun_blocked_dp`` on a dp = 4 mesh
    (four cards where the machine has them, else one card four times)
    at nb = 2032, 8 frames: K5a encode, K5b + K4 decode, mask == bits,
@@ -30,20 +36,45 @@ each against its plain PyTorch twin on the card.  Phases:
    on a (2, 1) mesh, each ``.bfvc`` byte-identical to the single-device
    file and decoded bit-exactly through the mesh; the same over
    distinct cards where the machine has two or more; one 3840x2160x3
-   chunk of 5 frames on a (1, 2) mesh, byte-identical to one device.
+   chunk of 5 frames on a (1, 2) mesh, byte-identical to one device;
+8. ``profile="planar"``: an I420 clip of 16 frames (Y 1920x1080, U and V
+   960x540, from the ``pan`` class with 2x2-subsampled chroma), round
+   trip plane-exact;
+9. the byte view: three 1920x1080 clips of 16 frames (x3 uint16 with
+   10-bit content, x3 float32 with NaNs, x4 uint8), round trips
+   ``tobytes``-exact;
+10. ``profile="bfv2"``: 16 frames of the bench clip, type-0 records with
+    a witness, round trip bit-exact; the same clip with ``devices=(2,
+    1)`` (distinct cards where the machine has them) byte-identical;
+    ``graft_entry.dryrun_multichip`` over four distinct cards, else a
+    (2, 2) mesh on one card; the gop torch ops timed at the chunk shape;
+11. ``exact=False`` on 16 bench-clip frames at 1080p, decode equal to the
+    encoder's own reconstruction, the first frame's noise sigma on the
+    card and on the CPU; ``mode="keyframe"`` on the golden frames writes
+    ``tests/fixtures/golden_ref.bfvc`` byte for byte; ``BloomCompressor``
+    decodes the golden text and binary fixtures and re-encodes the
+    binary one byte for byte; a 1920x1080 binary array at density 0.05
+    round-trips through ``BloomFilterCompressor(device="cuda")``; the
+    bloom_core and median torch ops timed at 1080p.
 
-Phases 3-4, 6 and 7 are the paths: every kernel's launch count is set
-to 0 just before each and read just after, and a kernel its path must
-launch that it did not fails the run (K1-K4 on phases 3-4; K5a, K5b
-and K4 on phase 6; K1-K4 on phase 7).  Every phase that fails raises;
+Phases 8-11 time each round trip once as it is (the path's fps) and
+then once more under a stage timer, which synchronises the card around
+its device stages, for the breakdown of where the time goes.
+
+Phases 3-4, 6, 7, 8 and 9 are the paths of the kernels: every kernel's
+launch count is set to 0 just before each and read just after, and a
+kernel its path must launch that it did not fails the run (K1-K4 on
+phases 3-4; K5a, K5b and K4 on phase 6; K1-K4 on phase 7; K1, K2 and K3
+or K4 on phase 8; K1-K3 on phase 9).  Every phase that fails raises;
 nothing falls back to the CPU.  The second-to-last lines are the
-per-kernel JSON (launches summed over the three path runs) and the
-card's name and power limit; the last line is ``{"ok": true,
-"device": {...}}``.  Exits non-zero without a CUDA card.
+per-kernel JSON (launches summed over the path runs) and the card's
+name and power limit; the last line is ``{"ok": true, "device":
+{...}}``.  Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -231,20 +262,26 @@ SAME_AS = {"blocked_encode": "blocked_encode_h",
            "blocked_membership": "blocked_membership_h"}
 
 
-def phase_kernels(dev, frames, reps: int = 20, twin_reps: int = 3):
-    """Every kernel against its twin on two input mixes; returns
-    {wrapper name: {max_abs_err, ms, plain_ms}} (times from the real
-    chunk)."""
+def phase_kernels(dev, frames, path_chunks=(), reps: int = 20,
+                  twin_reps: int = 3):
+    """Every kernel against its twin on the first chunk of ``frames``, on
+    an edge mix at its shape, and on the first chunk of each clip of
+    ``path_chunks`` ((label, frames) at the other paths' shapes), each
+    mix built just before it runs; returns {wrapper name: {max_abs_err,
+    ms, plain_ms}} (times from the first chunk of ``frames``)."""
     import torch
     from new_bloom_filter_repo_tpu_torch.ops.hashtables import blocked_tables
 
-    real_args, real_kw = chunk_args(frames, dev)
-    h, w = frames[0].shape[:2]
-    tab = blocked_tables(h * w, dev)
-    mixes = [("real chunk", real_args, real_kw, False, 0),
-             ("edge mix + flags", *edge_mix_args(tab, CHUNK, dev), True, 2)]
+    def mixes():
+        yield ("real chunk", *chunk_args(frames, dev), False, 0)
+        h, w = frames[0].shape[:2]
+        tab = blocked_tables(h * w, dev)
+        yield ("edge mix + flags", *edge_mix_args(tab, CHUNK, dev), True, 2)
+        for label, clip in path_chunks:
+            yield (label, *chunk_args(clip, dev), False, 0)
+
     out = {}
-    for label, args, kw, flagged, seed in mixes:
+    for label, args, kw, flagged, seed in mixes():
         bits = args[0]
         log(f"  mix {label}: F={bits.shape[0]} NB={bits.shape[1]} "
             f"k_lanes={kw['k_lanes']} nw={kw['nw']} vh={kw['vh']}")
@@ -293,10 +330,19 @@ def count_records(path):
     return hist
 
 
-def round_trip(label, frames, dev, path, card, **options):
-    """compress_video -> .bfvc -> decompress_video, bit-exact; prints
-    the fps of each direction beside the card.  ``options`` go to the
-    compressor (``devices=``, ``batch_size=``)."""
+def same_bits(a, b) -> bool:
+    """Bit-pattern equality of two frames (NaN payloads included)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def round_trip(label, frames, dev, path, card, color_space="BGR",
+               **options):
+    """compress_video -> .bfvc -> decompress_video, bit-pattern exact;
+    prints the fps of each direction beside the card.  ``options`` go to
+    the compressor (``devices=``, ``batch_size=``, ``profile=``).
+    Returns (record histogram, decoded frames)."""
     import torch
     from new_bloom_filter_repo_tpu_torch.models.video import (
         ImprovedVideoCompressor)
@@ -304,20 +350,34 @@ def round_trip(label, frames, dev, path, card, **options):
     comp = ImprovedVideoCompressor(device=dev, **options)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    stats = comp.compress_video(frames, path)
+    stats = comp.compress_video(frames, path, input_color_space=color_space)
     t1 = time.perf_counter()
     dec = comp.decompress_video(path)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     if len(dec) != len(frames) or not all(
-            np.array_equal(a, np.asarray(b)) for a, b in zip(frames, dec)):
+            same_bits(a, b) for a, b in zip(frames, dec)):
         raise AssertionError(f"{label}: round trip is not bit-exact")
     hist = count_records(path)
-    log(f"  {label}: {len(frames)} frames {frames[0].shape}, bit-exact; "
-        f"ratio {stats['compression_ratio']:.6f}; compress "
+    log(f"  {label}: {len(frames)} frames {np.asarray(frames[0]).shape} "
+        f"{np.asarray(frames[0]).dtype}, bit-exact; ratio "
+        f"{stats['compression_ratio']:.6f}; compress "
         f"{len(frames) / (t1 - t0):.3f} fps, decompress "
         f"{len(frames) / (t2 - t1):.3f} fps ({card}); records {hist}")
-    return hist
+    return hist, dec
+
+
+def round_trip_staged(label, stages, frames, dev, path, card, **kw):
+    """:func:`round_trip` as it is, whose fps are the path's; then once
+    more under the :class:`StageTimer` ``stages`` for the breakdown (its
+    fps include the timer's synchronisations).  Returns the first run's
+    (record histogram, decoded frames)."""
+    out = round_trip(label, frames, dev, path, card, **kw)
+    with stages:
+        round_trip(f"{label}, stage-timed rerun", frames, dev, path, card,
+                   **kw)
+    stages.report(card)
+    return out
 
 
 def path_launches(label: str, needed):
@@ -339,9 +399,9 @@ def phase_main_path(dev, bench_frames, pan_frames, tmp, card):
     bk.reset_launches()
     round_trip("phase 3 static 1080p (bench clip)", bench_frames, dev,
                os.path.join(tmp, "static.bfvc"), card)
-    pan_hist = round_trip("phase 4 pan 1080p (synthetic, seed 0)",
-                          pan_frames, dev, os.path.join(tmp, "pan.bfvc"),
-                          card)
+    pan_hist, _ = round_trip("phase 4 pan 1080p (synthetic, seed 0)",
+                             pan_frames, dev, os.path.join(tmp, "pan.bfvc"),
+                             card)
     launches = path_launches("main path", ["blocked_encode_h",
                                            "blocked_membership_h",
                                            "blocked_expand_chain",
@@ -352,24 +412,37 @@ def phase_main_path(dev, bench_frames, pan_frames, tmp, card):
 
 
 def phase_parity(dev, tmp):
-    """Same-machine byte parity (CUDA vs CPU twins) and the JAX
-    fixture decoded on the card."""
+    """Same-machine byte parity (CUDA vs CPU) of CIF clips on every
+    profile and mode with device work, and the JAX fixture decoded on
+    the card."""
     from new_bloom_filter_repo_tpu_torch.models.video import (
         ImprovedVideoCompressor)
     from new_bloom_filter_repo_tpu_torch.utils.synthetic import (
         SUITE, generate_frames)
 
     cif = generate_frames(16, 352, 288, seed=0, **SUITE["static_gentle"])
-    paths = {}
-    for d in (dev, "cpu"):
-        paths[d] = os.path.join(tmp, f"cif_{d}.bfvc")
-        ImprovedVideoCompressor(device=d).compress_video(cif, paths[d])
-    with open(paths[dev], "rb") as a, open(paths["cpu"], "rb") as b:
-        cuda_bytes, cpu_bytes = a.read(), b.read()
-    if cuda_bytes != cpu_bytes:
-        raise AssertionError("CIF .bfvc differs between CUDA and CPU")
-    log(f"  CIF static_gentle 16 frames: CUDA and CPU .bfvc identical "
-        f"({len(cuda_bytes)} bytes)")
+    variants = [
+        ("static_gentle", cif, "BGR", {}),
+        ("static_gentle planar I420", i420_from(cif), "YUV",
+         {"profile": "planar"}),
+        ("static_gentle uint16 (byte view)",
+         [f.astype(np.uint16) * 4 + 3 for f in cif], "BGR", {}),
+        ("static_gentle bfv2", cif, "BGR", {"profile": "bfv2"}),
+        ("static_gentle exact=False", cif, "BGR", {"exact": False}),
+    ]
+    for label, frames, cs, kw in variants:
+        blobs = []
+        for d in (dev, "cpu"):
+            path = os.path.join(tmp, f"cif_{d}.bfvc")
+            ImprovedVideoCompressor(device=d, **kw).compress_video(
+                frames, path, input_color_space=cs)
+            with open(path, "rb") as fh:
+                blobs.append(fh.read())
+        if blobs[0] != blobs[1]:
+            raise AssertionError(f"CIF {label}: .bfvc differs between CUDA "
+                                 f"and CPU")
+        log(f"  CIF {label} 16 frames: CUDA and CPU .bfvc identical "
+            f"({len(blobs[0])} bytes)")
     pan = generate_frames(16, 96, 80, seed=0, **SUITE["pan"])
     dec = ImprovedVideoCompressor(device=dev).decompress_video(FIXTURE)
     if len(dec) != len(pan) or not all(
@@ -472,6 +545,449 @@ def phase_devices(dev, bench, pan, tmp, card):
                                       "blocked_expand"])
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-11: the other profiles and modes
+# ---------------------------------------------------------------------------
+
+class StageTimer:
+    """While active, times every call of the named module functions on
+    the host clock and sums seconds and calls per name.  ``sync`` names
+    device stages: the card is synchronised before and after each of
+    their calls, so their time is the device work they issue.
+    ``closures`` names functions that return a ``finish()`` closure (the
+    encoder's host phase), which is timed too, as ``<name>.finish``.
+    The wrappers add those synchronisations, nothing else."""
+
+    def __init__(self, targets, sync=(), closures=()):
+        import threading
+
+        self.targets = targets          # [(module, function name)]
+        self.sync = set(sync)
+        self.closures = set(closures)
+        names = [n for _, n in targets] + [f"{n}.finish" for n in closures]
+        self.seconds = {name: 0.0 for name in names}
+        self.calls = {name: 0 for name in names}
+        self._lock = threading.Lock()
+        self._saved = []
+
+    def _add(self, name, t0):
+        with self._lock:
+            self.seconds[name] += time.perf_counter() - t0
+            self.calls[name] += 1
+
+    def __enter__(self):
+        import torch
+
+        for mod, name in self.targets:
+            real = getattr(mod, name)
+
+            def timed(*args, _real=real, _name=name, **kw):
+                if _name in self.sync:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _real(*args, **kw)
+                if _name in self.sync:
+                    torch.cuda.synchronize()
+                self._add(_name, t0)
+                if _name in self.closures:
+                    return self._timed_finish(out, f"{_name}.finish")
+                return out
+
+            self._saved.append((mod, name, real))
+            setattr(mod, name, timed)
+        return self
+
+    def _timed_finish(self, finish, name):
+        def timed_finish():
+            t0 = time.perf_counter()
+            out = finish()
+            self._add(name, t0)
+            return out
+        return timed_finish
+
+    def __exit__(self, *exc):
+        for mod, name, real in reversed(self._saved):
+            setattr(mod, name, real)
+
+    def report(self, card):
+        parts = [f"{n} {self.seconds[n] * 1e3:.1f} ms / {self.calls[n]} "
+                 f"calls" for n in self.seconds]
+        log(f"    stages ({card}; device stages synchronised): "
+            + "; ".join(parts))
+
+
+def i420_from(frames):
+    """I420 YUVFrames from 3-channel frames: Y is channel 0, U and V are
+    channels 1 and 2 subsampled 2x2 (every other row and column); the
+    444 view repeats them."""
+    from new_bloom_filter_repo_tpu_torch.utils.yuvframe import YUVFrame
+
+    out = []
+    for f in frames:
+        y = np.ascontiguousarray(f[..., 0])
+        u = np.ascontiguousarray(f[::2, ::2, 1])
+        v = np.ascontiguousarray(f[::2, ::2, 2])
+        up = [np.repeat(np.repeat(p, 2, 0), 2, 1) for p in (u, v)]
+        out.append(YUVFrame(np.stack([y, *up], axis=-1), {
+            "format": "I420", "y_plane": y, "u_plane": u, "v_plane": v}))
+    return out
+
+
+def box_clip(base, box_value, n_frames, seed):
+    """The bench recipe over any dtype and channel count: the static
+    ``base``, a moving 240-px box of ``box_value`` and ~1.5 % of the
+    pixels per frame replaced by values drawn from the base itself."""
+    rng = np.random.default_rng(seed)
+    h, w = base.shape[:2]
+    frames = []
+    for i in range(n_frames):
+        f = base.copy()
+        m = rng.random((h, w)) < 0.015
+        k = int(m.sum())
+        f[m] = base[rng.integers(0, h, k), rng.integers(0, w, k)]
+        x = (40 + 23 * i) % (w - 260)
+        y = (60 + 11 * i) % (h - 260)
+        f[y:y + 240, x:x + 240] = box_value
+        frames.append(f)
+    return frames
+
+
+def _coding_stages(extra=()):
+    """Stage timer of a blocked-path round trip: host keyframes (scene-cut
+    fallback trials included), the device phase of each chunk encode
+    (phase A, K1, the pull), its host phase (``finish()``: entropy and
+    residual trials, record assembly; its keyframe trials are counted in
+    both), and each run's decode (parse, K2, slicing, K3/K4)."""
+    from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as bp
+    from new_bloom_filter_repo_tpu_torch.models import frame_codec as fc
+
+    return StageTimer([(fc, "encode_keyframe_best"),
+                       (bp.BlockedEncoder, "encode_chunk_begin"),
+                       (bp.BlockedDecoder, "decode_run_begin"), *extra],
+                      sync=("encode_chunk_begin", "decode_run_begin"),
+                      closures=("encode_chunk_begin",))
+
+
+def phase_planar(dev, pan, tmp, card):
+    """profile="planar" on an I420 clip; K1, K2 and K3 or K4 must run."""
+    from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+
+    frames = i420_from(pan)
+    bk.reset_launches()
+    _, dec = round_trip_staged("phase 8 planar I420 (pan, Y 1920x1080)",
+                               _coding_stages(), frames, dev,
+                               os.path.join(tmp, "planar.bfvc"), card,
+                               color_space="YUV", profile="planar")
+    for i, (f, r) in enumerate(zip(frames, dec)):
+        for pl in ("y_plane", "u_plane", "v_plane"):
+            if not same_bits(f.yuv_info[pl], r.yuv_info[pl]):
+                raise AssertionError(f"planar frame {i} {pl} differs")
+    log(f"    planes exact, U/V {dec[0].yuv_info['u_plane'].shape}")
+    launches = path_launches("planar", ["blocked_encode_h",
+                                        "blocked_membership_h"])
+    if launches["blocked_expand_chain"] + launches["blocked_expand"] == 0:
+        raise AssertionError("planar decode launched neither K3 nor K4")
+    return launches
+
+
+def byte_view_clips(n_frames):
+    """x3 uint16 (10-bit), x3 float32 (HDR radiance with NaNs) and x4
+    uint8 clips at 1080p."""
+    rng = np.random.default_rng(2)
+    u16 = rng.integers(0, 1024, (H, W, 3), dtype=np.uint16)
+    f32 = rng.random((H, W, 3), dtype=np.float32) * 4.0
+    f32[rng.random((H, W)) < 2e-5] = np.nan
+    bgra = rng.integers(0, 256, (H, W, 4), dtype=np.uint8)
+    return [("uint16 x3 (10-bit)", box_clip(u16, (1023, 512, 64), n_frames,
+                                            3)),
+            ("float32 x3 (HDR, NaNs)", box_clip(f32, (16.0, 8.0, 0.5),
+                                                n_frames, 4)),
+            ("uint8 x4 (BGRA)", box_clip(bgra, (30, 200, 240, 255),
+                                         n_frames, 5))]
+
+
+def phase_byte_view(dev, clips, tmp, card):
+    """The byte view of wider frames; K1-K3 must run (motion is off in
+    the byte view's decode: no global shift in these clips)."""
+    from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+
+    bk.reset_launches()
+    for label, frames in clips:
+        round_trip_staged(f"phase 9 {label}", _coding_stages(), frames, dev,
+                          os.path.join(tmp, "byte_view.bfvc"), card)
+    return path_launches("byte view", ["blocked_encode_h",
+                                       "blocked_membership_h",
+                                       "blocked_expand_chain"])
+
+
+def bfv2_chunk(frames, dev):
+    """The gop stages' inputs for the first chunk of ``frames``, made as
+    ``_encode_frames_batched_bfv2`` makes them."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch.models import gop
+    from new_bloom_filter_repo_tpu_torch.models.binary_codec import (
+        _filter_scalars)
+    from new_bloom_filter_repo_tpu_torch.models.bloom import (
+        optimal_compression_params)
+    from new_bloom_filter_repo_tpu_torch.ops import bitpack, bloom_core
+    from new_bloom_filter_repo_tpu_torch.ops.hashtables import (
+        get_hash_tables)
+
+    h, w = frames[0].shape[:2]
+    n = h * w
+    stacked = torch.from_numpy(np.stack(frames[:CHUNK + 1])).to(dev)
+    masks, packed, counts = gop.gop_masks(stacked)
+    cols, flags = [], []
+    for c in counts.cpu().numpy():
+        k, l = optimal_compression_params(n, int(c) / n)
+        flags.append(int(l == 0 or l >= n))     # pass-through record
+        if flags[-1]:
+            cols.append((1, 0, 0, 0))
+            continue
+        _, fk, (thi, tlo) = _filter_scalars(k)
+        cols.append((l, int(thi), int(tlo), fk))
+    scal = [torch.tensor(col, dtype=torch.int64, device=dev)
+            for col in zip(*cols)]
+    vmax = min(gop.next_bucket(int(counts.max())), bitpack.padded_length(n))
+    return {"stacked": stacked, "masks": masks, "packed": packed, "n": n,
+            "flags": torch.tensor(flags, dtype=torch.int32, device=dev),
+            "tables": get_hash_tables(n, "video", dev), "scalars": scal,
+            "l_pad": bloom_core.bitmap_pad(n), "vmax": vmax}
+
+
+def time_gop_ops(frames, dev, card):
+    """The gop torch ops at the 1080p chunk shape (F = 15), CUDA events;
+    the chain must rebuild the chunk.  Returns {op: ms}."""
+    import torch
+    import torch.nn.functional as F
+    from new_bloom_filter_repo_tpu_torch.models import gop
+
+    c = bfv2_chunk(frames, dev)
+    t = c["tables"]
+    enc_args = (c["masks"], c["stacked"][1:], t.h1, t.h2, t.act,
+                *c["scalars"])
+    kw = {"l_pad": c["l_pad"], "vmax": c["vmax"]}
+    pb, pw, _, vals = gop.gop_encode(*enc_args, **kw)
+    # a record's bitmap region: the filter, or the mask of a pass-through
+    flags = c["flags"]
+    pbm = torch.where(flags[:, None] > 0, c["packed"],
+                      F.pad(pb, (0, pw.shape[1] - pb.shape[1])))
+    fargs = (pbm, pw, vals, flags, t.h1, t.h2, t.act, *c["scalars"])
+    masks, pix = gop.gop_decode_fields(*fargs, n=c["n"], vmax=c["vmax"])
+    chained = gop.gop_chain(c["stacked"][0], masks, pix)
+    if not torch.equal(chained, c["stacked"][1:]):
+        raise AssertionError("gop decode did not rebuild the chunk")
+    ms = {"gop_masks": time_ms(lambda: gop.gop_masks(c["stacked"]), 5),
+          "gop_encode": time_ms(lambda: gop.gop_encode(*enc_args, **kw), 3),
+          "gop_decode_fields": time_ms(
+              lambda: gop.gop_decode_fields(*fargs, n=c["n"],
+                                            vmax=c["vmax"]), 3),
+          "gop_chain": time_ms(
+              lambda: gop.gop_chain(c["stacked"][0], masks, pix), 3)}
+    log(f"    gop ops, F={pb.shape[0]} n={c['n']} vmax={c['vmax']} "
+        f"({card}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+    return ms
+
+
+def phase_bfv2(dev, bench, tmp, card):
+    """profile="bfv2": round trip, the mesh stream, the BFV2 dry run."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch import graft_entry
+    from new_bloom_filter_repo_tpu_torch.models import frame_codec as fc
+    from new_bloom_filter_repo_tpu_torch.models import gop
+    from new_bloom_filter_repo_tpu_torch.models.video import (
+        ImprovedVideoCompressor)
+    from new_bloom_filter_repo_tpu_torch.ops import bloom_core
+    from new_bloom_filter_repo_tpu_torch.parallel.mesh import make_mesh
+    from new_bloom_filter_repo_tpu_torch.utils import container
+
+    path = os.path.join(tmp, "bfv2.bfvc")
+    round_trip_staged(
+        "phase 10 bfv2 (bench clip)",
+        StageTimer([(fc, "encode_keyframe_best"), (gop, "gop_masks"),
+                    (gop, "gop_encode"), (fc, "build_interframe_record"),
+                    (gop, "gop_decode")],
+                   sync=("gop_masks", "gop_encode", "gop_decode")),
+        bench, dev, path, card, profile="bfv2")
+    payloads = container.read_bfvc(path)[1]
+    legacy = sum(ImprovedVideoCompressor._is_legacy_bloom(p)
+                 for p in payloads)
+    if legacy == 0:
+        raise AssertionError("bfv2 stream holds no type-0 witness record")
+    log(f"    {legacy} of {len(payloads)} records are type-0 Bloom records "
+        f"with a witness")
+    devs, distinct = mesh_devices(2)
+    mesh = make_mesh(2, 1, devs)
+    mpath = os.path.join(tmp, "bfv2_mesh.bfvc")
+    round_trip(f"phase 10 bfv2 devices=(2, 1) on {mesh} (distinct cards: "
+               f"{distinct})", bench, None, mpath, card, devices=mesh,
+               profile="bfv2")
+    with open(path, "rb") as a, open(mpath, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("bfv2 mesh stream differs from one "
+                                 "device's")
+    log("    .bfvc byte-identical to the single-device file")
+    devs, distinct = mesh_devices(4)
+    target = 4 if distinct else make_mesh(2, 2, devs)
+    out = graft_entry.dryrun_multichip(target)
+    err = 0
+    bits = out["bits"]
+    t = out["tables"]
+    for i in range(bits.shape[0]):
+        sc = [int(x[i]) for x in out["scalars"]]
+        ref = bloom_core.encode_core(
+            bits[i], t[0:2], t[2:4], t[4:6], *sc[:3], floor_k=sc[3],
+            l_pad=out["encoded"][0].shape[1])
+        err = max(err, max_abs_err((out["encoded"][0][i], out["encoded"][1][i]),
+                                   (ref[0], ref[2])))
+    log(f"    dryrun_multichip over {[str(d) for d in devs]} (distinct "
+        f"cards: {distinct}): sharded vs unsharded "
+        f"max_abs_err={err}")
+    if err:
+        raise AssertionError("sharded BFV2 encode differs from unsharded")
+    return time_gop_ops(bench, dev, card)
+
+
+def phase_near_lossless(dev, bench, tmp, card):
+    """exact=False against the encoder's reconstruction; keyframe mode
+    against the golden file; the standalone codecs on the card."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch.models import gop
+    from new_bloom_filter_repo_tpu_torch.models import video as video_mod
+    from new_bloom_filter_repo_tpu_torch.models.binary_codec import (
+        BloomFilterCompressor)
+    from new_bloom_filter_repo_tpu_torch.models.image_text import (
+        BloomCompressor)
+    from new_bloom_filter_repo_tpu_torch.ops import bloom_core, color, median
+
+    comp = video_mod.ImprovedVideoCompressor(device=dev, exact=False)
+    path = os.path.join(tmp, "near.bfvc")
+    real = video_mod.diff_ops.apply_diff
+
+    def near_trip(label, stages):
+        """compress + decompress; decode must equal the reconstruction
+        the encoder kept (``apply_diff``'s results)."""
+        recon = []
+
+        def spy(*args, **kw):
+            recon.append(real(*args, **kw))
+            return recon[-1]
+
+        video_mod.diff_ops.apply_diff = spy
+        try:
+            with stages:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                comp.compress_video(bench, path)
+                t1 = time.perf_counter()
+                dec = comp.decompress_video(path)
+                t2 = time.perf_counter()
+        finally:
+            video_mod.diff_ops.apply_diff = real
+        if len(recon) != len(bench) - 1 or not all(
+                same_bits(a, b) for a, b in zip(dec[1:], recon)):
+            raise AssertionError("exact=False decode differs from the "
+                                 "encoder's reconstruction")
+        log(f"  {label}: {len(bench)} frames, decode == encoder "
+            f"reconstruction; compress {len(bench) / (t1 - t0):.3f} fps, "
+            f"decompress {len(bench) / (t2 - t1):.3f} fps ({card})")
+
+    label = "phase 11 exact=False (bench clip)"
+    near_trip(label, contextlib.nullcontext())
+    st = StageTimer([(median, "noise_level"),
+                     (video_mod.diff_ops, "diff_mask_thresholded"),
+                     (bloom_core, "encode_core"), (gop, "gop_decode")],
+                    sync=("noise_level", "diff_mask_thresholded",
+                          "encode_core", "gop_decode"))
+    near_trip(f"{label}, stage-timed rerun", st)
+    st.report(card)
+    gray = color.bgr_to_gray(torch.from_numpy(bench[0]).to(dev))
+    s_card = float(median.noise_level(gray))
+    s_cpu = float(median.noise_level(gray.cpu()))
+    log(f"    frame 0 noise sigma: card {s_card!r}, CPU {s_cpu!r}")
+
+    golden = np.load(os.path.join(REPO, "tests", "fixtures",
+                                  "golden_frames.npz"))["bgr"]
+    kpath = os.path.join(tmp, "keyframe.bfvc")
+    video_mod.ImprovedVideoCompressor(device=dev, mode="keyframe") \
+        .compress_video(list(golden), kpath)
+    with open(kpath, "rb") as a, open(os.path.join(
+            REPO, "tests", "fixtures", "golden_ref.bfvc"), "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("keyframe mode did not write "
+                                 "golden_ref.bfvc")
+    log("  mode=keyframe on golden_frames.npz wrote golden_ref.bfvc byte "
+        "for byte")
+
+    bc = BloomCompressor(device=dev)
+    fix = os.path.join(REPO, "tests", "fixtures")
+    with open(os.path.join(fix, "golden_text.bcz"), "rb") as fh:
+        text = bc.decompress_text(fh.read())
+    with open(os.path.join(fix, "golden_text.txt")) as fh:
+        if text != fh.read():
+            raise AssertionError("golden_text.bcz decoded wrong")
+    with open(os.path.join(fix, "golden_binary.bcz"), "rb") as fh:
+        ref = fh.read()
+    bits = np.load(os.path.join(fix, "golden_binary_bits.npy"))
+    bitmap, witness, p, n, k, shape = bc._unpack_compressed_data(ref)
+    if not np.array_equal(bc.decompress(bitmap, witness, n, k), bits):
+        raise AssertionError("golden_binary.bcz decoded wrong")
+    bitmap, witness, p, n, _ = bc.compress(bits)
+    k, _ = bc._calculate_optimal_params(n, p)
+    if bc._pack_compressed_data(bitmap, witness, p, n, k, shape) != ref:
+        raise AssertionError("golden_binary.bcz not re-encoded byte for "
+                             "byte")
+    log("  BloomCompressor on the card: golden text and binary decoded, "
+        "binary re-encoded byte for byte")
+
+    rng = np.random.default_rng(6)
+    arr = (rng.random((H, W)) < 0.05).astype(np.uint8)
+    codec = BloomFilterCompressor(device=dev)
+    bitmap, witness, p, n, ratio = codec.compress(arr)
+    k32 = float(np.float32(codec._calculate_optimal_params(n, p)[0]))
+    if not np.array_equal(codec.decompress(bitmap, witness, n, k32),
+                          arr.ravel()):
+        raise AssertionError("BloomFilterCompressor round trip failed")
+    log(f"  BloomFilterCompressor(device=cuda) {W}x{H} at density 0.05: "
+        f"round trip exact, ratio {ratio:.6f}")
+    return time_bloom_ops(dev, arr, bench[1], card)
+
+
+def time_bloom_ops(dev, arr, frame, card):
+    """bloom_core, median and diff torch ops at 1080p, CUDA events."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch.models.binary_codec import (
+        _filter_scalars)
+    from new_bloom_filter_repo_tpu_torch.models.bloom import (
+        optimal_compression_params)
+    from new_bloom_filter_repo_tpu_torch.ops import bloom_core, color, diff
+    from new_bloom_filter_repo_tpu_torch.ops import median
+    from new_bloom_filter_repo_tpu_torch.ops.hashtables import (
+        get_hash_tables)
+
+    n = arr.size
+    k, l = optimal_compression_params(n, arr.sum() / n)
+    _, fk, (thi, tlo) = _filter_scalars(k)
+    t = get_hash_tables(n, "video", dev)
+    bits = torch.from_numpy(arr.ravel()).to(dev)
+    enc = (bits, t.h1, t.h2, t.act, l, thi, tlo)
+    kw = {"floor_k": fk, "l_pad": bloom_core.bitmap_pad(n)}
+    bit_array, _, wit, _ = bloom_core.encode_core(*enc, **kw)
+    dec = (bit_array, wit, t.h1, t.h2, t.act, l, thi, tlo)
+    f0 = torch.from_numpy(frame).to(dev)
+    gray = color.bgr_to_gray(f0)
+    ms = {"encode_core": time_ms(lambda: bloom_core.encode_core(*enc, **kw),
+                                 5),
+          "decode_core": time_ms(
+              lambda: bloom_core.decode_core(*dec, floor_k=fk), 5),
+          "noise_level": time_ms(lambda: median.noise_level(gray), 5),
+          "diff_mask_thresholded": time_ms(
+              lambda: diff.diff_mask_thresholded(f0, f0.flip(0), 9.5), 10)}
+    log(f"    bloom ops at n={n} (floor_k {fk}, l {l}) ({card}): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+    return ms
+
+
 def main() -> int:
     import torch
 
@@ -480,6 +996,8 @@ def main() -> int:
               "script runs only on a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from new_bloom_filter_repo_tpu_torch.models.video import (
+        ImprovedVideoCompressor)
     from new_bloom_filter_repo_tpu_torch.ops import _build
     from new_bloom_filter_repo_tpu_torch.utils import synthetic
 
@@ -504,10 +1022,16 @@ def main() -> int:
     bench = make_bench_clip(31)
     pan = synthetic.generate_frames(31, W, H, seed=0,
                                     **synthetic.SUITE["pan"])
+    byte_clips = byte_view_clips(16)
     log(f"  clips generated on the host in {time.perf_counter() - t0:.2f} s")
 
     log(f"phase 2 kernels vs twins at 1080p chunk shapes ({smi}):")
-    stats = phase_kernels(dev, bench)
+    path_chunks = [("planar U plane chunk",
+                    [f.yuv_info["u_plane"] for f in i420_from(pan[:16])])]
+    path_chunks += [(f"byte view {label} chunk",
+                     [ImprovedVideoCompressor._byte_view(f) for f in clip])
+                    for label, clip in byte_clips]
+    stats = phase_kernels(dev, bench, path_chunks)
     with tempfile.TemporaryDirectory() as tmp:
         log("phases 3-4 main path:")
         runs = [phase_main_path(dev, bench, pan, tmp, smi)]
@@ -517,6 +1041,14 @@ def main() -> int:
         runs.append(phase_dryrun(nb=2032))
         log(f"phase 7 devices= ({smi}):")
         runs.append(phase_devices(dev, bench, pan, tmp, smi))
+        log(f"phase 8 planar ({smi}):")
+        runs.append(phase_planar(dev, pan[:16], tmp, smi))
+        log(f"phase 9 byte view ({smi}):")
+        runs.append(phase_byte_view(dev, byte_clips, tmp, smi))
+        log(f"phase 10 bfv2 ({smi}):")
+        phase_bfv2(dev, bench[:16], tmp, smi)
+        log(f"phase 11 near-lossless, keyframe mode, binary codecs ({smi}):")
+        phase_near_lossless(dev, bench[:16], tmp, smi)
     launches = {n: sum(r[n] for r in runs) for n in KERNELS}
 
     kernels = [{"name": f"{KERNELS[n][0]} {n}", "route": "cuda",

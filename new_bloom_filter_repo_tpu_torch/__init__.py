@@ -7,12 +7,14 @@ tensor code is PyTorch; the blocked rational-Bloom kernels are
 hand-written CUDA C++ (``ops/csrc/blocked.cu``), built at
 first use, each with a plain PyTorch twin that CPU tensors run.
 
-The port covers the default blocked exact codec:
-``ImprovedVideoCompressor(mode="bloom", profile="blocked", exact=True,
-motion=True)`` on uniform uint8 frames with at most 3 channels, with an
-explicit ``device`` argument, on one device or, with ``devices=``, on a
-(dp, sp) mesh of devices driven by one process (``parallel/``).  It
-never imports ``jax``.
+The port covers every mode and profile of the JAX package's
+``ImprovedVideoCompressor`` (``mode="bloom"``/``"keyframe"``;
+``profile="blocked"``/``"bfv2"``/``"planar"``; ``exact=False``; uint8,
+uint16, float32 and >3-channel frames), ``FixedVideoCompressor`` and the
+binary codec ``BloomFilterCompressor``, each with an explicit ``device``
+argument, on one device or, with ``devices=``, on a (dp, sp) mesh of
+devices driven by one process (``parallel/``).  It never imports
+``jax``.
 """
 
 __version__ = "0.1.0"
@@ -22,8 +24,12 @@ from new_bloom_filter_repo_tpu_torch.models.bloom import (  # noqa: F401
     StandardBloomFilter,
 )
 
-# The video classes resolve lazily (PEP 562), like the reference package.
+# The codec/video classes resolve lazily (PEP 562), like the reference
+# package.
 _LAZY = {
+    "BloomFilterCompressor":
+        "new_bloom_filter_repo_tpu_torch.models.binary_codec",
+    "FixedVideoCompressor": "new_bloom_filter_repo_tpu_torch.models.video",
     "ImprovedVideoCompressor": "new_bloom_filter_repo_tpu_torch.models.video",
 }
 

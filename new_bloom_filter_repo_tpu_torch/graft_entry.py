@@ -1,13 +1,23 @@
-"""Multi-device dry run of the blocked kernels.
+"""Single-step entry point and multi-device dry runs.
 
 The counterpart of the repository's ``__graft_entry__.py`` for the
-PyTorch port.  :func:`dryrun_blocked_dp` runs the frame-sharded K5a
-encode and the frame-sharded K5b + K4 decode on a mesh and requires the
-decoded change mask to equal the encoded bits, as the JAX dry run does.
+PyTorch port:
 
-Not ported yet, and raising ``NotImplementedError``: :func:`entry` and
-the BFV2 half of :func:`dryrun_multichip`, which run ``ops/bloom_core``
-and ``parallel/batch.py`` (ROADMAP Queue 1 item 10).
+* :func:`entry` returns the rational-Bloom frame encode step (insert
+  pass, membership pass, witness compaction; ``ops/bloom_core``) and
+  example arguments;
+* :func:`dryrun_multichip` runs one sharded batch encode + decode step
+  of ``parallel/batch.py`` on a mesh (frames over ``dp``, the index axis
+  over ``sp``, bit-array partials OR-reduced, witness segments placed by
+  an exclusive scan of the per-shard counts), requires the round trip to
+  be exact, then runs :func:`dryrun_blocked_dp`;
+* :func:`dryrun_blocked_dp` runs the frame-sharded K5a encode and the
+  frame-sharded K5b + K4 decode and requires the decoded change mask to
+  equal the encoded bits.
+
+Unlike the JAX package, nothing here probes backends or falls back to
+virtual CPU devices: a mesh is built from the devices it names, and
+:func:`auto_mesh` raises when there are too few cards.
 """
 
 from __future__ import annotations
@@ -15,9 +25,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from new_bloom_filter_repo_tpu_torch.models.binary_codec import (
+    _filter_scalars,
+)
+from new_bloom_filter_repo_tpu_torch.models.bloom import (
+    optimal_compression_params,
+)
 from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+from new_bloom_filter_repo_tpu_torch.ops import bloom_core
+from new_bloom_filter_repo_tpu_torch.ops.hashtables import get_hash_tables
+from new_bloom_filter_repo_tpu_torch.parallel import batch as pbatch
 from new_bloom_filter_repo_tpu_torch.parallel import blocked_batch
-from new_bloom_filter_repo_tpu_torch.parallel.mesh import Mesh
+from new_bloom_filter_repo_tpu_torch.parallel.mesh import Mesh, auto_mesh
 
 
 def dryrun_inputs(f: int, nb: int, seed: int = 1):
@@ -60,16 +79,79 @@ def dryrun_blocked_dp(mesh: Mesh, *, nb: int = 8, seed: int = 1) -> dict:
             "decoded": decoded}
 
 
+def _filter_batch(bits: np.ndarray):
+    """Per-row (l, t_hi, t_lo, floor_k) of a (B, n) bit batch, l >= 1."""
+    n = bits.shape[1]
+    rows = []
+    for row in bits:
+        k, l = optimal_compression_params(n, row.sum() / n)
+        _, floor_k, (t_hi, t_lo) = _filter_scalars(k)
+        rows.append((max(1, l), int(t_hi), int(t_lo), floor_k))
+    return [np.array(col, np.int64) for col in zip(*rows)]
+
+
 def entry():
-    """The BFV2 single-step entry point: not ported yet."""
-    raise NotImplementedError(
-        "entry() runs the BFV2 cores (ops/bloom_core), not ported to the "
-        "PyTorch package yet (ROADMAP Queue 1 item 10)")
+    """(fn, example_args): the single-frame Bloom encode step, n = 4096
+    items at 10 % density, on the CPU."""
+    n = 4096
+    l_pad = bloom_core.bitmap_pad(n)
+    k_max = bloom_core.MAX_LANES
+
+    def step(bits, h1hi, h1lo, h2hi, h2lo, ahi, alo, l, t_hi, t_lo, floor_k):
+        h1, h2, act = (h1hi, h1lo), (h2hi, h2lo), (ahi, alo)
+        bit_array = bloom_core.insert_partial_lanes(
+            bits, h1, h2, act, l, t_hi, t_lo, floor_k, k_max, l_pad)
+        pass_mask = bloom_core.membership_lanes(
+            bit_array, h1, h2, act, l, t_hi, t_lo, floor_k, k_max)
+        witness, count = bloom_core.witness_compact(bits, pass_mask)
+        return bit_array, witness, count
+
+    rng = np.random.default_rng(0)
+    bits = (rng.random((1, n)) < 0.1).astype(np.uint8)
+    t = get_hash_tables(n, "video", "cpu")
+    scalars = [torch.tensor(int(x[0])) for x in _filter_batch(bits)]
+    example_args = (torch.from_numpy(bits[0]),
+                    *t.h1, *t.h2, *t.act, *scalars)
+    return step, example_args
 
 
-def dryrun_multichip(n_devices: int):
-    """The BFV2 multi-device dry run: not ported yet."""
-    raise NotImplementedError(
-        "dryrun_multichip runs the BFV2 sharded cores (parallel/batch.py), "
-        "not ported to the PyTorch package yet (ROADMAP Queue 1 item 10); "
-        "dryrun_blocked_dp runs the blocked half")
+def dryrun_multichip(mesh_or_n) -> dict:
+    """One sharded batch encode + decode step over a mesh, then the
+    blocked dry run on the same mesh.
+
+    ``mesh_or_n``: a :class:`Mesh`, or a device count n for
+    ``auto_mesh(n, sp=2 if n is even else 1)`` over distinct CUDA cards
+    (which raises when the machine has fewer).  Runs 2 * dp frames of
+    n = 512 * sp items at densities 3-28 %; raises unless the decode
+    equals the bits.  Returns the inputs and outputs of the BFV2 step
+    (tensors on the mesh's home device)."""
+    if isinstance(mesh_or_n, Mesh):
+        mesh = mesh_or_n
+    else:
+        n_dev = int(mesh_or_n)
+        mesh = auto_mesh(n_dev, sp=2 if n_dev % 2 == 0 else 1)
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    home = mesh.home
+    n = 512 * sp
+    batch = 2 * dp
+    l_pad = bloom_core.bitmap_pad(n)
+
+    rng = np.random.default_rng(0)
+    densities = [0.03 + 0.25 * i / max(1, batch - 1) for i in range(batch)]
+    bits_np = np.stack([(rng.random(n) < d).astype(np.uint8)
+                        for d in densities])
+    scalars = tuple(torch.from_numpy(x).to(home)
+                    for x in _filter_batch(bits_np))
+    t = get_hash_tables(n, "video", home)
+    tables = (*t.h1, *t.h2, *t.act)
+    bits = torch.from_numpy(bits_np).to(home)
+    encoded = pbatch.make_sharded_encode(mesh, n, l_pad)(bits, tables,
+                                                         *scalars)
+    decoded = pbatch.make_sharded_decode(mesh, n, l_pad)(
+        encoded[0], encoded[1], tables, *scalars)
+    if not torch.equal(decoded, bits):
+        raise AssertionError("multichip dry-run round trip mismatch")
+    print(f"dryrun_multichip OK: mesh dp={dp} sp={sp}, batch={batch}, n={n}")
+    dryrun_blocked_dp(mesh)
+    return {"bits": bits, "tables": tables, "scalars": scalars,
+            "encoded": encoded, "decoded": decoded}

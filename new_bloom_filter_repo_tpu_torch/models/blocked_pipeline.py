@@ -790,7 +790,8 @@ class BlockedEncoder:
         ``keyframe_fn(j) -> bytes`` supplies a keyframe record for
         scene-cut fallbacks; ``stacked`` may carry a pre-uploaded
         :meth:`stack_chunk` result.  ``byte_view``: frames are raw bytes
-        of wider-dtype content (not ported yet; the slice passes False).
+        of wider-dtype content — half-pel, tile and filtered-residual
+        trials (which mix neighbouring samples) are off for them.
         ``stage_times`` (optional dict) accumulates wall seconds per
         stage."""
         _t0 = time.time()

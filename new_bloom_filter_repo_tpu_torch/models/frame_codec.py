@@ -1444,8 +1444,8 @@ def decode_interframe(data: bytes, codec, offset: int = 0):
     """Inverse of :func:`encode_interframe` (payload after any type byte).
 
     ``codec`` is any object with the ``BloomFilterCompressor`` surface
-    (``compress``/``decompress``/``_calculate_optimal_params``); this
-    package does not port that codec yet (ROADMAP Queue 1 item 10).
+    (``compress``/``decompress``/``_calculate_optimal_params``), such as
+    ``models.binary_codec.BloomFilterCompressor``.
 
     Returns (flat mask uint8[n], values uint8[count]).
     (reference: improved_video_compressor.py:969-1015)

@@ -1,23 +1,33 @@
-"""Public video compression API, on the blocked exact path.
+"""Public video compression API.
 
-The PyTorch port of ``new_bloom_filter_repo_tpu.models.video``, reduced
-to the codec's main path: ``ImprovedVideoCompressor(mode="bloom",
-profile="blocked", exact=True, motion=True)`` on uniform uint8 frames
-with at most 3 channels.  Every device tensor lives on the ``device``
-the compressor was built with; a CPU device runs the kernels' plain
-twins, a CUDA device the hand-written kernels.  ``devices=`` (an int, a
-``(dp, sp)`` tuple, ``"auto"`` or a ``parallel.mesh.Mesh``) shards each
-chunk over frames and blocks on several devices of one process, with
-the same bytes as one device.  The ``.bfvc`` bytes are the reference's:
-for the same frames and options both packages write the same file, and
-each decodes the other's.
+The PyTorch port of ``new_bloom_filter_repo_tpu.models.video``:
+
+* :class:`FixedVideoCompressor` — the keyframe-only codec: every frame
+  an untyped zlib keyframe record (container magic b'BFVC').
+* :class:`ImprovedVideoCompressor` — the facade.  ``mode="bloom"``
+  writes keyframes every ``keyframe_interval`` frames and Bloom-coded
+  inter-frame records between them (magic b'BFV2'); ``mode="keyframe"``
+  writes :class:`FixedVideoCompressor`'s b'BFVC' files.  Profiles:
+  ``"blocked"`` (the blocked records, through the hand-written kernels
+  of ``ops/blocked.py``; uint16, float32 HDR and >3-channel frames are
+  inter-coded on their raw bytes, the byte view), ``"bfv2"`` (type-0
+  Bloom records, through the torch ops of ``models/gop.py``) and
+  ``"planar"`` (each native Y/U/V plane sequence through the blocked
+  path).  ``exact=False``, mixed dtypes or shapes and single frames take
+  the per-frame loop.
+
+Every device tensor lives on the ``device`` the compressor was built
+with; a CPU device runs the kernels' plain twins, a CUDA device the
+hand-written kernels and every torch op on the card.  ``devices=`` (an
+int, a ``(dp, sp)`` tuple, ``"auto"`` or a ``parallel.mesh.Mesh``)
+shards each chunk over frames (and, blocked profile, blocks) on several
+devices of one process, with the same bytes as one device.  The
+``.bfvc`` bytes are the reference's: for the same frames and options
+both packages write the same file, and each decodes the other's.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-Queue 1 item: ``mode="keyframe"`` and ``exact=False`` (item 10),
-``profile="planar"`` and the byte-view path for non-uint8 or wider than
-3-channel frames (item 9), ``profile="bfv2"`` and its type-0 Bloom
-records (item 10), meshes across processes (item 11), and file export
-on decode (item 12).
+Queue 1 item: file export on decode (item 12).  Meshes across processes
+(item 11) have no entry point here.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import os
 import struct
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -33,6 +44,20 @@ import torch
 
 from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline
 from new_bloom_filter_repo_tpu_torch.models import frame_codec as fc
+from new_bloom_filter_repo_tpu_torch.models import gop as gop_mod
+from new_bloom_filter_repo_tpu_torch.models.binary_codec import (
+    BloomFilterCompressor,
+    _filter_scalars,
+)
+from new_bloom_filter_repo_tpu_torch.models.bloom import (
+    optimal_compression_params,
+)
+from new_bloom_filter_repo_tpu_torch.ops import bitpack, bloom_core
+from new_bloom_filter_repo_tpu_torch.ops import color as color_ops
+from new_bloom_filter_repo_tpu_torch.ops import diff as diff_ops
+from new_bloom_filter_repo_tpu_torch.ops import median as median_ops
+from new_bloom_filter_repo_tpu_torch.ops.hashtables import get_hash_tables
+from new_bloom_filter_repo_tpu_torch.parallel import batch as pbatch
 from new_bloom_filter_repo_tpu_torch.parallel.mesh import (
     Mesh,
     auto_mesh,
@@ -49,11 +74,11 @@ from new_bloom_filter_repo_tpu_torch.utils.yuvframe import (
 # is not visible in the bytes.
 _CHUNK = int(os.environ.get("NBF_CHUNK", "15"))
 
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet "
-        f"(ROADMAP Queue 1 item {item})")
+# Wrappers of host-predicted residuals the encoder never emits for the
+# byte view, and their names in the decoder's error text.
+_NOT_BYTE_DOMAIN = {fc.TILES: "tile-motion", fc.TILES_HP: "tile-motion",
+                    fc.ZOOM_G: "zoom-motion", fc.ROT_G: "rotation",
+                    fc.AVG2: "avg2", fc.REF_HP: "multi-ref"}
 
 
 def add_yuv_info_to_frame(frame) -> YUVFrame:
@@ -117,21 +142,66 @@ def verify_lossless(original_frames, decompressed_frames,
     return result
 
 
-class ImprovedVideoCompressor:
-    """The public facade on the blocked exact path.
+class FixedVideoCompressor:
+    """Keyframe-only lossless codec: every frame an untyped zlib
+    keyframe record, byte-compatible with the reference's live path.
+    Host only.  ``num_threads`` sizes the native threaded-DEFLATE pool
+    (0/None = all host cores)."""
 
-    Keyframes every ``keyframe_interval`` frames, blocked rational-Bloom
-    inter-frame records between them (container magic b'BFV2').
-    ``device`` places every tensor of the pipeline (default CPU);
-    ``devices`` shards the device stages over a mesh (None: one device;
-    ``"auto"``: every card of ``device``'s type, CUDA by default; an int
-    n: n distinct cards on frames; ``(dp, sp)``: dp*sp cards, sp of them
-    on the blocks of a frame; or a ``Mesh``), and the compressor's
-    ``device`` is then the mesh's first device.  ``prefetch`` uploads
-    the next chunk while the current one computes (default on;
-    ``NBF_PREFETCH=0`` turns it off).  The remaining parameters mirror
-    the reference's constructor; the ones that only select paths not
-    ported yet raise ``NotImplementedError``.
+    def __init__(self, verbose: bool = True,
+                 num_threads: Optional[int] = None):
+        self.verbose = verbose
+        self.num_threads = int(num_threads or 0)
+
+    def compress_frame(self, frame) -> bytes:
+        return fc.encode_keyframe(unwrap(frame), yuv_info_of(frame),
+                                  typed=False)
+
+    def decompress_frame(self, compressed_data: bytes):
+        frame, yuv_info = fc.decode_keyframe(compressed_data)
+        if yuv_info is not None:
+            return YUVFrame(frame, yuv_info)
+        return frame
+
+    def compress_video(self, frames) -> List[bytes]:
+        if self.verbose:
+            print(f"Compressing {len(frames)} frames")
+        return fc.encode_keyframes_batch(
+            [unwrap(f) for f in frames],
+            [yuv_info_of(f) for f in frames], typed=False,
+            threads=self.num_threads)
+
+    def decompress_video(self, compressed_frames) -> List[np.ndarray]:
+        if self.verbose:
+            print(f"Decompressing {len(compressed_frames)} frames")
+        return [self.decompress_frame(d) for d in compressed_frames]
+
+    def verify_lossless(self, original_frames, decompressed_frames) -> Dict:
+        return verify_lossless(original_frames, decompressed_frames,
+                               self.verbose)
+
+    def add_yuv_info_to_frame(self, yuv_frame):
+        return add_yuv_info_to_frame(yuv_frame)
+
+
+class ImprovedVideoCompressor:
+    """The public facade.
+
+    ``mode="bloom"`` (default): keyframes every ``keyframe_interval``
+    frames, rational-Bloom inter-frame records between them (container
+    magic b'BFV2'); ``mode="keyframe"``: every frame an untyped keyframe
+    (b'BFVC').  ``profile``: ``"blocked"``, ``"bfv2"`` or ``"planar"``
+    (module docstring).  ``exact=False`` thresholds the gray/Y change
+    against the frame's noise (near-lossless; decode equals the
+    encoder's own reconstruction).  ``device`` places every tensor of
+    the pipeline (default CPU); ``devices`` shards the device stages
+    over a mesh (None: one device; ``"auto"``: every card of
+    ``device``'s type, CUDA by default; an int n: n distinct cards on
+    frames; ``(dp, sp)``: dp*sp cards, sp of them on the blocks of a
+    frame; or a ``Mesh``), and the compressor's ``device`` is then the
+    mesh's first device.  ``prefetch`` uploads the next chunk while the
+    current one computes (default on; ``NBF_PREFETCH=0`` turns it off).
+    The remaining parameters mirror the reference's constructor.
     """
 
     def __init__(self,
@@ -155,14 +225,6 @@ class ImprovedVideoCompressor:
             raise ValueError(f"unknown mode: {mode!r}")
         if profile not in ("blocked", "bfv2", "planar"):
             raise ValueError(f"unknown profile: {profile!r}")
-        if mode == "keyframe":
-            raise _not_ported('mode="keyframe"', 10)
-        if profile == "planar":
-            raise _not_ported('profile="planar"', 9)
-        if profile == "bfv2":
-            raise _not_ported('profile="bfv2"', 10)
-        if not exact:
-            raise _not_ported("exact=False", 10)
         self.mesh = _resolve_mesh(
             devices, "cuda" if device is None else torch.device(device).type)
         self.device = home_device(self.mesh, device)
@@ -181,6 +243,10 @@ class ImprovedVideoCompressor:
         self.mode = mode
         self.exact = exact
         self.profile = profile
+        self.compressor = FixedVideoCompressor(verbose=verbose,
+                                               num_threads=num_threads)
+        self.bloom_compressor = BloomFilterCompressor(
+            verbose=False, seed_set="video", device=self.device)
         if prefetch is None:
             prefetch = os.environ.get("NBF_PREFETCH", "1") == "1"
         self.prefetch = bool(prefetch)
@@ -190,30 +256,70 @@ class ImprovedVideoCompressor:
             mesh=self.mesh)
         self._blocked_dec = blocked_pipeline.BlockedDecoder(
             device=self.device, mesh=self.mesh)
-        self._keyframe_zlib_level = 6
+        # Bloom-mode keyframes use a faster DEFLATE level (any level
+        # decodes identically); level 9 keeps keyframe mode's files
+        # byte-identical to the reference's.
+        self._keyframe_zlib_level = 6 if mode == "bloom" else 9
+
+    def _upload(self, arr) -> torch.Tensor:
+        """A host frame (or plane) as a tensor on this compressor's
+        device."""
+        if torch.is_tensor(arr):
+            return arr.to(self.device)
+        a = np.require(np.asarray(arr), requirements=["C", "W"])
+        return torch.from_numpy(a).to(self.device)
 
     # -- encoding ----------------------------------------------------------
 
+    def _frame_threshold(self, gray_like) -> float:
+        """Adaptive diff threshold from the frame's noise, scaled by
+        bloom_threshold_modifier."""
+        thr = median_ops.adaptive_threshold(
+            self._upload(gray_like), self.noise_tolerance,
+            self.min_diff_threshold, self.max_diff_threshold)
+        return thr * self.bloom_threshold_modifier
+
     def _encode_frames(self, frames) -> tuple[List[bytes], int]:
         """Encode frames into typed records; returns (payloads, keyframes).
-        Uniform uint8 clips with at most 3 channels go through the
-        batched blocked pipeline; a single frame is one keyframe."""
-        arrs = [np.asarray(unwrap(f)) for f in frames]
-        infos = [yuv_info_of(f) for f in frames]
-        a0 = arrs[0]
-        if len(arrs) == 1 and a0.dtype == np.uint8:
-            return [fc.encode_keyframe_best(a0, infos[0])], 1
-        uniform = all(a.dtype == a0.dtype and a.shape == a0.shape
-                      for a in arrs)
-        if not uniform:
-            raise _not_ported("frames of mixed dtype or shape", 10)
-        if (a0.dtype != np.uint8 or a0.ndim not in (2, 3)
-                or (a0.ndim == 3 and a0.shape[2] > 3)):
-            raise _not_ported(
-                "byte-view coding of non-uint8 or >3-channel frames", 9)
-        return self._encode_frames_batched(arrs, infos)
 
-    def _encode_frames_batched(self, arrs, infos
+        Uniform uint8 clips with at most 3 channels in exact mode go
+        through the batched blocked pipeline.  Uniform clips of any other
+        fixed-size dtype (uint16, float32 HDR) or with more than 3
+        channels run the same pipeline on the BYTE view: diff masks and
+        witness values over each frame's raw bytes viewed as an (H,
+        row_bytes) uint8 image, bit-pattern exact by construction.
+        ``profile="bfv2"`` batches uniform uint8 clips through the gop
+        stages.  Mixed dtypes/shapes, single frames and near-lossless
+        mode use the per-frame loop."""
+        arrs = [np.asarray(unwrap(f)) for f in frames]
+        uniform = all(
+            a.dtype == arrs[0].dtype and a.shape == arrs[0].shape
+            for a in arrs)
+        if (self.exact and uniform and len(frames) > 1
+                and self.profile in ("blocked", "planar")):
+            infos = [yuv_info_of(f) for f in frames]
+            a0 = arrs[0]
+            packable = (a0.dtype == np.uint8
+                        and (a0.ndim == 2 or a0.shape[2] <= 3))
+            if packable:
+                return self._encode_frames_batched(arrs, infos)
+            if a0.dtype.kind in "uif" and a0.ndim in (2, 3):
+                return self._encode_frames_batched(arrs, infos,
+                                                   byte_view=True)
+        if (self.exact and uniform and len(frames) > 1
+                and self.profile == "bfv2" and arrs[0].dtype == np.uint8
+                and arrs[0].ndim in (2, 3)):
+            infos = [yuv_info_of(f) for f in frames]
+            return self._encode_frames_batched_bfv2(arrs, infos)
+        return self._encode_frames_loop(frames)
+
+    @staticmethod
+    def _byte_view(arr: np.ndarray) -> np.ndarray:
+        """Raw bytes of a frame as an (H, row_bytes) uint8 image."""
+        a = np.ascontiguousarray(arr)
+        return a.view(np.uint8).reshape(a.shape[0], -1)
+
+    def _encode_frames_batched(self, arrs, infos, byte_view: bool = False
                                ) -> tuple[List[bytes], int]:
         """Batched encode through the blocked pipeline
         (models/blocked_pipeline.py): chunks of up to ``batch_size``
@@ -221,21 +327,23 @@ class ImprovedVideoCompressor:
         ``finish()`` closure) runs on ONE worker thread while the main
         thread drives chunk i+1's device phase; the single worker keeps
         host phases in submit order, so payload assembly is an in-order
-        drain."""
+        drain.  ``byte_view``: the device work runs on raw frame bytes;
+        keyframes keep the original dtype."""
         payloads: List[bytes] = []
         keyframes = 0
         # stream boundary: the type-18 zoom tracker must not carry an
-        # anchor from a previous video
+        # anchor from a previous video or plane sequence
         self._blocked_enc.begin_stream()
+        darrs = [self._byte_view(a) for a in arrs] if byte_view else arrs
         segments = _plan_segments(len(arrs), self.keyframe_interval,
                                   self._chunk)
 
         def stack_for(seg):
             _, s, e = seg
-            cf = arrs[s:e]
+            cf = darrs[s:e]
             cf = cf + [cf[-1]] * (self._chunk - len(cf))
             return cf, blocked_pipeline.BlockedEncoder.stack_chunk(
-                arrs[s - 1], cf, self.device)
+                darrs[s - 1], cf, self.device)
 
         inflight = None  # (future, real): at most ONE queued host phase
         with ThreadPoolExecutor(max_workers=1) as ex:
@@ -277,8 +385,8 @@ class ImprovedVideoCompressor:
                             break
 
                 finish = self._blocked_enc.encode_chunk_begin(
-                    arrs[start - 1], chunk_frames, keyframe_fn,
-                    stacked=stacked)
+                    darrs[start - 1], chunk_frames, keyframe_fn,
+                    stacked=stacked, byte_view=byte_view)
                 job = ex.submit(finish)
                 if inflight is not None:
                     drain(*inflight)
@@ -286,6 +394,224 @@ class ImprovedVideoCompressor:
             if inflight is not None:
                 drain(*inflight)
         return payloads, keyframes
+
+    def _encode_frames_batched_bfv2(self, arrs, infos
+                                    ) -> tuple[List[bytes], int]:
+        """Batched encode for the type-0 record profile: ``gop_masks``
+        and ``gop_encode`` run whole chunks on the device, and the host
+        assembles records byte-identical to the per-frame loop's.  Under
+        a mesh both stages shard over frames (parallel/batch.py)."""
+        payloads: List[bytes] = []
+        keyframes = 0
+        a0 = arrs[0]
+        h, w = a0.shape[:2]
+        n = h * w
+        dev = self.device
+        tables = get_hash_tables(n, "video", dev)
+        l_pad = bloom_core.bitmap_pad(n)
+
+        for kind, start, end in _plan_segments(len(arrs),
+                                               self.keyframe_interval,
+                                               self._chunk):
+            if kind == "key":
+                payloads.append(fc.encode_keyframe_best(arrs[start],
+                                                        infos[start]))
+                keyframes += 1
+                continue
+            real = end - start
+            stacked = self._upload(np.stack(arrs[start - 1:end]))
+            curr_d = stacked[1:]
+            if self.mesh is not None:
+                masks_d, packed_d, counts_d = pbatch.make_gop_masks_dp(
+                    self.mesh)(stacked[:-1], curr_d)
+            else:
+                masks_d, packed_d, counts_d = gop_mod.gop_masks(stacked)
+            counts = counts_d.cpu().numpy()
+
+            ks = np.zeros(real, np.float64)
+            l_arr = np.ones(real, np.int64)
+            thi = np.zeros(real, np.int64)
+            tlo = np.zeros(real, np.int64)
+            fk = np.zeros(real, np.int64)
+            bloom_js = []
+            for j in range(real):
+                p = int(counts[j]) / n
+                k, l = optimal_compression_params(n, p)
+                ks[j] = k
+                if p >= blocked_pipeline.P_STAR or l == 0 or l >= n:
+                    continue  # pass-through (witness empty)
+                if l >= bloom_core.MAX_MODULUS:
+                    raise ValueError(
+                        f"filter length {l} exceeds supported maximum")
+                bloom_js.append(j)
+                l_arr[j] = l
+                _, fk[j], (thi[j], tlo[j]) = _filter_scalars(k)
+
+            vmax = min(gop_mod.next_bucket(int(counts.max())),
+                       bitpack.padded_length(n))
+            encode = (pbatch.make_gop_encode_dp(self.mesh, l_pad=l_pad,
+                                                vmax=vmax)
+                      if self.mesh is not None else
+                      partial(gop_mod.gop_encode, l_pad=l_pad, vmax=vmax))
+            out = encode(masks_d, curr_d, tables.h1, tables.h2, tables.act,
+                         *(torch.from_numpy(x).to(dev)
+                           for x in (l_arr, thi, tlo, fk)))
+            pb, pw, wcnt, vals, packed = (
+                t.cpu().numpy() for t in (*out, packed_d))
+
+            bloom_set = set(bloom_js)
+            for j in range(real):
+                cnt = int(counts[j])
+                p = cnt / n
+                values = vals[j, :cnt].reshape(-1)
+                if j in bloom_set:
+                    l = int(l_arr[j])
+                    wc = int(wcnt[j])
+                    rec = fc.build_interframe_record(
+                        p, n, ks[j], pb[j][: (l + 7) // 8].tobytes(), l,
+                        pw[j][: (wc + 7) // 8].tobytes(), wc, values)
+                else:
+                    rec = fc.build_interframe_record(
+                        p, n, ks[j], packed[j][: (n + 7) // 8].tobytes(),
+                        n, b"", 0, values)
+                # Encoder freedom: dense masks (scene cuts) fall back to
+                # a keyframe when that is not larger (loop-path policy).
+                if p > blocked_pipeline.KEY_DENSITY:
+                    key = fc.encode_keyframe_best(arrs[start + j],
+                                                  infos[start + j])
+                    if len(key) <= len(rec):
+                        payloads.append(key)
+                        keyframes += 1
+                        continue
+                payloads.append(rec)
+        return payloads, keyframes
+
+    def _encode_frames_loop(self, frames) -> tuple[List[bytes], int]:
+        """One frame at a time: keyframes where the schedule, a dtype
+        other than uint8 or a change of shape demand one, type-0 Bloom
+        records between them, diffed against the encoder's own
+        reconstruction (so near-lossless mode cannot drift)."""
+        payloads: List[bytes] = []
+        keyframes = 0
+        recon_prev = None  # encoder-side reconstruction state
+        recon_info = None
+        for i, frame in enumerate(frames):
+            arr = np.asarray(unwrap(frame))
+            info = yuv_info_of(frame)
+            force_key = (
+                recon_prev is None
+                or i % self.keyframe_interval == 0
+                or arr.dtype != np.uint8
+                or arr.shape != recon_prev.shape
+            )
+            if force_key:
+                payloads.append(fc.encode_keyframe_best(arr, info))
+                keyframes += 1
+                recon_prev, recon_info = arr, _copy_info(info)
+                continue
+
+            prev_d, arr_d = self._upload(recon_prev), self._upload(arr)
+            if self.exact:
+                mask_d = diff_ops.diff_mask_exact(prev_d, arr_d)
+            else:
+                is_color = arr.ndim == 3 and arr.shape[2] > 1
+                if is_color and self.use_direct_yuv:
+                    gray = arr_d[:, :, 0]
+                elif is_color:
+                    gray = color_ops.bgr_to_gray(arr_d)
+                else:
+                    gray = arr_d
+                mask_d = diff_ops.diff_mask_thresholded(
+                    prev_d, arr_d, self._frame_threshold(gray),
+                    use_direct_yuv=self.use_direct_yuv)
+            mask = mask_d.cpu().numpy()
+
+            values = diff_ops.gather_changed_values(arr, mask, info)
+            inter = fc.encode_interframe(mask, values, self.bloom_compressor)
+            # Encoder freedom: fall back to a keyframe when the diff record
+            # is not actually smaller (dense masks on scene cuts).
+            if float(mask.mean()) > blocked_pipeline.KEY_DENSITY:
+                key = fc.encode_keyframe_best(arr, info)
+                if len(key) <= len(inter):
+                    payloads.append(key)
+                    keyframes += 1
+                    recon_prev, recon_info = arr, _copy_info(info)
+                    continue
+            payloads.append(inter)
+            if self.exact:
+                recon_prev, recon_info = arr, _copy_info(info)
+            else:
+                recon_info = _copy_info(recon_info)
+                recon_prev = diff_ops.apply_diff(recon_prev, mask, values,
+                                                 recon_info)
+        return payloads, keyframes
+
+    def _encode_planar(self, frames) -> tuple[List[bytes], int, int]:
+        """profile="planar": code the Y/U/V plane sequences independently
+        at their native subsampled geometry.
+
+        Returns (payloads, keyframes, native_size); ``native_size`` is the
+        true raw plane byte count."""
+        wrapped = [f if yuv_info_of(f) is not None
+                   else add_yuv_info_to_frame(unwrap(f)) for f in frames]
+        infos = [yuv_info_of(f) for f in wrapped]
+        fmt = infos[0].get("format", "YUV444")
+        shapes = [(np.asarray(i["y_plane"]).shape,
+                   np.asarray(i["u_plane"]).shape,
+                   np.asarray(i["v_plane"]).shape) for i in infos]
+        if any(s != shapes[0] for s in shapes):
+            raise ValueError("planar profile requires uniform plane "
+                             "geometry across frames")
+        h, w = shapes[0][0]
+        payloads: List[bytes] = []
+        counts = []
+        keyframes = 0
+        native_size = 0
+        for plane in ("y_plane", "u_plane", "v_plane"):
+            for i in infos:
+                dt = np.asarray(i[plane]).dtype
+                if dt != np.uint8:
+                    raise ValueError(
+                        f"planar profile requires uint8 planes, got {dt} "
+                        f"for {plane}; use profile='blocked' (byte-domain "
+                        f"inter coding) for high-bit-depth frames")
+            seq = [np.ascontiguousarray(i[plane], dtype=np.uint8)
+                   for i in infos]
+            native_size += sum(p.nbytes for p in seq)
+            pl, kf = self._encode_frames(seq)
+            counts.append(len(pl))
+            keyframes += kf
+            payloads.extend(pl)
+        header = fc.encode_planar_header(fmt, w, h, len(frames), counts)
+        return [header] + payloads, keyframes, native_size
+
+    def _decode_planar(self, payloads: List[bytes]) -> List[YUVFrame]:
+        """Inverse of :meth:`_encode_planar`: decode each plane stream,
+        reassemble YUVFrames (444 view + exact native planes)."""
+        hdr = fc.parse_planar_header(payloads[0], offset=1)
+        if len(hdr["plane_counts"]) != 3:
+            raise ValueError("planar stream must carry 3 planes")
+        seqs = []
+        pos = 1
+        for c in hdr["plane_counts"]:
+            if pos + c > len(payloads):
+                raise ValueError("planar stream truncated")
+            seqs.append(self._decode_payloads(payloads[pos:pos + c],
+                                              typed=True))
+            pos += c
+        frames = []
+        for i in range(hdr["frame_count"]):
+            y = np.asarray(unwrap(seqs[0][i]))
+            u = np.asarray(unwrap(seqs[1][i]))
+            v = np.asarray(unwrap(seqs[2][i]))
+            ry, rx = y.shape[0] // u.shape[0], y.shape[1] // u.shape[1]
+            u444 = np.repeat(np.repeat(u, ry, axis=0), rx, axis=1)
+            v444 = np.repeat(np.repeat(v, ry, axis=0), rx, axis=1)
+            frames.append(YUVFrame(
+                np.stack([y, u444, v444], axis=-1),
+                {"format": hdr["format"], "y_plane": y,
+                 "u_plane": u, "v_plane": v}))
+        return frames
 
     def compress_video(self, frames: List, output_path: str = None,
                        input_color_space: str = "BGR") -> Dict:
@@ -299,8 +625,16 @@ class ImprovedVideoCompressor:
             frames = [f if hasattr(f, "yuv_info") else
                       add_yuv_info_to_frame(f) for f in frames]
         original_size = sum(f.nbytes for f in frames)
-        payloads, keyframes = self._encode_frames(frames)
-        magic = container.MAGIC_BLOOM
+        if self.mode == "keyframe":
+            payloads = self.compressor.compress_video(frames)
+            keyframes = len(frames)
+            magic = container.MAGIC_FIXED
+        elif self.profile == "planar":
+            payloads, keyframes, original_size = self._encode_planar(frames)
+            magic = container.MAGIC_BLOOM
+        else:
+            payloads, keyframes = self._encode_frames(frames)
+            magic = container.MAGIC_BLOOM
         if output_path:
             container.write_bfvc(output_path, payloads, magic)
             compressed_size = os.path.getsize(output_path)
@@ -332,9 +666,15 @@ class ImprovedVideoCompressor:
 
     def _decode_payloads(self, payloads: List[bytes], typed: bool):
         if not typed:
-            raise _not_ported("decoding keyframe-mode (b'BFVC') files", 10)
+            out = []
+            for payload in payloads:
+                frame, info = fc.decode_keyframe(payload)
+                out.append(YUVFrame(frame, info) if info is not None
+                           else frame)
+            return out
+
         if payloads and fc.record_type(payloads[0]) == fc.PLANAR:
-            raise _not_ported("decoding planar-profile streams", 9)
+            return self._decode_planar(payloads)
 
         def _inner_type(payload: bytes) -> int:
             t = fc.record_type(payload)
@@ -410,8 +750,8 @@ class ImprovedVideoCompressor:
         # Decode-run pipelining: a device run's frame pull is deferred
         # until the NEXT run's device work is issued, and consecutive
         # runs chain on the device-resident last frame.  Host-applied
-        # records (keyframes, residuals) flush first: they need the
-        # reconstruction on the host.
+        # records (keyframes, residuals, type-0 Bloom runs) flush first:
+        # they need the reconstruction on the host.
         run_pending = None   # finish() -> decoded frames of prior run
         chain_dev = None     # device last frame of that run
 
@@ -422,13 +762,6 @@ class ImprovedVideoCompressor:
             fin, run_pending, chain_dev = run_pending, None, None
             for frame in fin():
                 _advance(frame)
-
-        def _check_byte_domain():
-            if prev.dtype != np.uint8 or (prev.ndim == 3
-                                          and prev.shape[2] > 3):
-                raise _not_ported(
-                    "decoding byte-view records of non-uint8 or "
-                    ">3-channel frames", 9)
 
         i = 0
         while i < len(payloads):
@@ -465,17 +798,20 @@ class ImprovedVideoCompressor:
                 raise ValueError(f"Unknown frame type: {rtype}")
             if prev is None:
                 raise ValueError("inter-frame record before any keyframe")
-            _check_byte_domain()
             if rtype in (fc.MOTION_HP, fc.TILES, fc.REF_HP,
                          fc.TILES_HP, fc.ZOOM_G, fc.AVG2, fc.ROT_G) and \
                     _inner_type(payloads[i]) not in fc.RESIDUAL_TYPES:
                 raise ValueError(
                     "half-pel/tile/multi-ref wrapper on non-residual "
                     "record")
+            # dtype/shape are invariant along an inter chain, so the
+            # (possibly still-pending) prev is a valid witness for both
+            byte_domain = (prev.dtype != np.uint8
+                           or (prev.ndim == 3 and prev.shape[2] > 3))
             if _inner_type(payloads[i]) in fc.RESIDUAL_TYPES:
                 _flush_runs()
-                frame = self._apply_residual_record(payloads[i], rtype,
-                                                    prev, hist)
+                frame = self._apply_residual_record(
+                    payloads[i], rtype, prev, hist, byte_domain)
                 _advance(frame)
                 i += 1
                 continue
@@ -492,14 +828,33 @@ class ImprovedVideoCompressor:
                     f"{_inner_type(payloads[i])}")
             run = payloads[i:j]
             if any(self._is_legacy_bloom(p) for p in run):
-                raise _not_ported("decoding BFV2 type-0 Bloom records", 10)
+                # type-0 Bloom runs decode through the gop stages on a
+                # host base: no device chaining, flush first
+                _flush_runs()
+                if byte_domain:
+                    decoded = [_from_bytes(d, prev) for d in
+                               self._decode_inter_run(self._byte_view(prev),
+                                                      run)]
+                else:
+                    decoded = self._decode_inter_run(prev, run)
+                for frame in decoded:
+                    _advance(frame)
+                i = j
+                continue
             real = len(run)
             seg = run + [fc.encode_empty_frame()] * (self._chunk - real)
-            base_in = chain_dev if chain_dev is not None else prev
+            if chain_dev is not None:
+                base_in = chain_dev
+            else:
+                base_in = self._byte_view(prev) if byte_domain else prev
             last_dev, fin = self._blocked_dec.decode_run_begin(base_in, seg)
 
-            def run_finish(_fin=fin, _real=real):
-                return _fin()[:_real]
+            def run_finish(_fin=fin, _real=real, _bd=byte_domain,
+                           _like=prev):
+                out = _fin()[:_real]
+                if _bd:
+                    out = [_from_bytes(d, _like) for d in out]
+                return out
 
             _flush_runs()  # pull the prior run while this one computes
             run_pending, chain_dev = run_finish, last_dev
@@ -507,11 +862,16 @@ class ImprovedVideoCompressor:
         _flush_runs()
         return frames
 
-    @staticmethod
-    def _apply_residual_record(payload: bytes, rtype: int,
-                               prev: np.ndarray, hist: List[np.ndarray]):
+    def _apply_residual_record(self, payload: bytes, rtype: int,
+                               prev: np.ndarray, hist: List[np.ndarray],
+                               byte_domain: bool):
         """Reconstruct one host-applied residual record (types 8-20)
-        against the running reconstruction ``prev`` and its history."""
+        against the running reconstruction ``prev`` and its history.
+        ``byte_domain``: the stream inter-codes the byte view, where the
+        encoder emits only plain and integer-motion residuals."""
+        if byte_domain and rtype in _NOT_BYTE_DOMAIN:
+            raise ValueError(f"{_NOT_BYTE_DOMAIN[rtype]} wrapper on "
+                             f"byte-domain stream")
         if rtype in (fc.TILES, fc.TILES_HP):
             tlog, tshifts, off = fc.parse_motion_tiles(payload)
             residual = fc.parse_residual_any(payload, off, prev.shape)
@@ -550,18 +910,108 @@ class ImprovedVideoCompressor:
         off = 0
         if rtype in (fc.MOTION, fc.MOTION_HP):
             dy, dx, off = fc.parse_motion(payload)
-        residual = fc.parse_residual_any(payload, off, prev.shape)
-        return fc.apply_residual(prev, residual, dy, dx,
-                                 halfpel=rtype == fc.MOTION_HP)
+        # the encoder diffed/rolled the byte view, so the residual
+        # applies on the same representation
+        base = self._byte_view(prev) if byte_domain else prev
+        residual = fc.parse_residual_any(payload, off, base.shape)
+        frame = fc.apply_residual(base, residual, dy, dx,
+                                  halfpel=rtype == fc.MOTION_HP)
+        return _from_bytes(frame, prev) if byte_domain else frame
 
     @staticmethod
     def _is_legacy_bloom(payload: bytes) -> bool:
         """Type-0 record with a non-empty witness: the BFV2 (non-blocked)
-        rational-Bloom layout."""
+        rational-Bloom layout, decoded through the gop stages."""
         if fc.record_type(payload) != fc.INTERFRAME:
             return False
         witness_bits = struct.unpack_from("<I", payload, 17)[0]
         return witness_bits > 0
+
+    def _decode_inter_run(self, base: np.ndarray, run: List[bytes]):
+        """Decode a run of inter-style records: blocked/sparse/empty/
+        pass-through records through the blocked decoder, type-0 Bloom
+        records through the gop stages.  Mixed runs are segmented."""
+        out: List[np.ndarray] = []
+        i = 0
+        while i < len(run):
+            legacy = self._is_legacy_bloom(run[i])
+            j = i
+            while j < len(run) and self._is_legacy_bloom(run[j]) == legacy:
+                j += 1
+            seg = run[i:j]
+            if legacy:
+                frames = self._decode_seg_legacy(base, seg)
+            else:
+                real = len(seg)
+                seg = seg + [fc.encode_empty_frame()] * (self._chunk - real)
+                frames = self._blocked_dec.decode_run(base, seg)[:real]
+            out.extend(frames)
+            base = frames[-1]
+            i = j
+        return out
+
+    def _decode_seg_legacy(self, base: np.ndarray, run: List[bytes]):
+        """Device decode of a run of type-0/empty records following
+        ``base``: the gop decode fields (sharded over frames under a
+        mesh), the chain, one pull."""
+        b = len(run)
+        h, w = base.shape[:2]
+        n = h * w
+        n8 = bitpack.padded_length(n)
+        c = 1 if base.ndim == 2 else base.shape[2]
+        dev = self.device
+        tables = get_hash_tables(n, "video", dev)
+
+        pbm = np.zeros((b, n8 // 8), np.uint8)
+        pwit = np.zeros((b, n8 // 8), np.uint8)
+        flags = np.zeros(b, np.int32)
+        l_arr = np.ones(b, np.int64)
+        thi = np.zeros(b, np.int64)
+        tlo = np.zeros(b, np.int64)
+        fk = np.zeros(b, np.int64)
+        values_list = [None] * b
+        vneed = 1
+        for j, payload in enumerate(run):
+            if fc.record_type(payload) == fc.EMPTY:
+                flags[j] = 1
+                continue
+            rec = fc.parse_interframe(payload, offset=1)
+            if rec["n"] != n:
+                raise ValueError("inter-frame length mismatch with geometry")
+            values_list[j] = rec["values"]
+            vneed = max(vneed, rec["values_count"] // max(1, c))
+            bb = rec["bitmap_bytes"]
+            pbm[j, : bb.shape[0]] = bb
+            if rec["witness_bits"] == 0:
+                flags[j] = 1
+                l_arr[j] = max(1, rec["bitmap_bits"])
+            else:
+                wb = rec["witness_bytes"]
+                pwit[j, : wb.shape[0]] = wb
+                l_arr[j] = rec["bitmap_bits"]
+                _, fk[j], (thi[j], tlo[j]) = _filter_scalars(float(rec["k"]))
+
+        vmax = min(gop_mod.next_bucket(vneed), n8)
+        vals = np.zeros((b, vmax, c), np.uint8)
+        for j, v in enumerate(values_list):
+            if v is not None and v.size:
+                vals[j, : v.size // c] = v.reshape(-1, c)
+
+        args = [torch.from_numpy(x).to(dev)
+                for x in (pbm, pwit, vals, flags)]
+        scalars = [torch.from_numpy(x).to(dev) for x in (l_arr, thi, tlo, fk)]
+        base_d = self._upload(base)
+        if self.mesh is not None:
+            masks_d, pix_d = pbatch.make_gop_decode_fields_dp(
+                self.mesh, n=n, vmax=vmax)(
+                    *args, tables.h1, tables.h2, tables.act, *scalars)
+            frames_d = gop_mod.gop_chain(base_d, masks_d, pix_d)
+        else:
+            frames_d = gop_mod.gop_decode(
+                base_d, *args, tables.h1, tables.h2, tables.act, *scalars,
+                n=n, vmax=vmax)
+        out = frames_d.cpu().numpy()
+        return [out[j] for j in range(b)]
 
     def decompress_video(self, input_path: str = None,
                          output_path: Optional[str] = None,
@@ -570,7 +1020,9 @@ class ImprovedVideoCompressor:
         """Decompress from a .bfvc file or a raw payload list."""
         start = time.time()
         if output_path:
-            raise _not_ported("file export on decode (utils/videoio)", 12)
+            raise NotImplementedError(
+                "file export on decode (utils/videoio) is not ported to the "
+                "PyTorch package yet (ROADMAP Queue 1 item 12)")
         magic = container.MAGIC_FIXED
         if input_path:
             if not os.path.exists(input_path):
@@ -593,6 +1045,13 @@ class ImprovedVideoCompressor:
 
     def add_yuv_info_to_frame(self, yuv_frame):
         return add_yuv_info_to_frame(yuv_frame)
+
+
+def _from_bytes(fb: np.ndarray, like: np.ndarray) -> np.ndarray:
+    """A decoded byte view back as a frame of ``like``'s dtype and
+    shape."""
+    return (np.ascontiguousarray(fb).reshape(-1).view(like.dtype)
+            .reshape(like.shape))
 
 
 def _plan_segments(total: int, keyframe_interval: int,

@@ -17,10 +17,18 @@ their cost is set-up, never per frame.
 without its pad of the block axis to a multiple of 64 (``nbk_of``): that
 pad only served the TPU's grid tiles and never reaches the stream, so
 the kernels here run on exactly ``nb`` blocks.
+
+:func:`get_hash_tables` is the counterpart of
+``new_bloom_filter_repo_tpu.ops.hashtables.get_hash_tables``, the full
+64-bit tables of the BFV2 cores (``ops/bloom_core.py``), held as
+non-negative int64 ``(hi, lo)`` halves.  The JAX package's
+``ops/u64.py`` and ``ops/xxh64.py`` only existed because the TPU has no
+64-bit lanes; they have no counterpart here.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from functools import lru_cache
 from typing import Dict
 
@@ -33,6 +41,13 @@ from new_bloom_filter_repo_tpu_torch.models.bloom import (
     VIDEO_H2_SEED,
 )
 from new_bloom_filter_repo_tpu_torch.utils import native
+
+SEED_SETS = {
+    # the .bfvc video codec
+    "video": (VIDEO_H1_SEED, VIDEO_H2_SEED, VIDEO_ACTIVATION_SEED),
+    # the standalone image/text codec (models/image_text.py)
+    "compress": (0, 1, VIDEO_ACTIVATION_SEED),
+}
 
 IPB = 1024            # items per block (ops/blocked.IPB)
 SUPER = IPB * 8       # geometry padding granularity: sets nb, so it is
@@ -96,3 +111,49 @@ def tables_from_numpy(tab: dict) -> Dict[str, object]:
             a = a.view(np.int32)
         out[k] = torch.from_numpy(a.astype(np.int32, copy=False).copy())
     return out
+
+
+@dataclass(frozen=True)
+class HashTables:
+    """u64 lane tables of indices [0, n), each a ``(hi, lo)`` pair of
+    int64 tensors with values in [0, 2**32)."""
+
+    n: int
+    h1: tuple
+    h2: tuple
+    act: tuple
+
+
+def _halves(x: np.ndarray, device) -> tuple:
+    x = np.asarray(x, np.uint64)
+    return tuple(torch.from_numpy(v.astype(np.int64)).to(device)
+                 for v in (x >> np.uint64(32), x & np.uint64(0xFFFFFFFF)))
+
+
+@lru_cache(maxsize=16)
+def _hash_tables(n: int, seed_set: str, device: torch.device) -> HashTables:
+    h1, h2, act = native.xxh64_index_tables(n, *SEED_SETS[seed_set])
+    return HashTables(n=n, h1=_halves(h1, device), h2=_halves(h2, device),
+                      act=_halves(act, device))
+
+
+def get_hash_tables(n: int, seed_set: str = "video",
+                    device="cpu") -> HashTables:
+    """The lane tables ``xxh64(str(i), seed)`` of indices [0, n) for
+    ``seed_set`` ("video" or "compress") on ``device``.  Cached per (n,
+    seed set, device); callers must not write into the tensors."""
+    if seed_set not in SEED_SETS:
+        raise ValueError(f"unknown seed set: {seed_set!r}")
+    return _hash_tables(int(n), seed_set, torch.device(device))
+
+
+def hash_tables_from_numpy(tables) -> HashTables:
+    """The JAX package's ``HashTables`` (u32 ``(hi, lo)`` pairs; any
+    array type numpy converts) as this package's CPU tables.  Lets a test
+    feed both packages identical state."""
+    def pair(p):
+        return tuple(torch.from_numpy(np.asarray(v).astype(np.int64))
+                     for v in p)
+
+    return HashTables(n=int(tables.n), h1=pair(tables.h1),
+                      h2=pair(tables.h2), act=pair(tables.act))

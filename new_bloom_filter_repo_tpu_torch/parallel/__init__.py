@@ -1,2 +1,4 @@
-"""Multi-device execution of the blocked codec: (dp, sp) device meshes,
-frame (dp) and block (sp) sharding with no collectives, in one process."""
+"""Multi-device execution in one process: (dp, sp) device meshes, the
+blocked codec's frame (dp) and block (sp) sharding with no collectives,
+and the BFV2 cores' sharding with an OR-reduce and an exclusive scan of
+per-shard counts gathered on the mesh's home device."""

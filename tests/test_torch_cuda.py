@@ -160,3 +160,94 @@ def test_cuda_stream_equals_cpu_stream(dev, tmp_path, name):
     assert len(dec) == len(frames)
     for g, w in zip(dec, frames):
         np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# The other profiles and modes: torch ops on the card, CUDA vs CPU bytes
+# ---------------------------------------------------------------------------
+
+def other_clip(kind, n=8, h=48, w=64):
+    """Seeded clips of the non-main paths (no JAX needed)."""
+    rng = np.random.default_rng(7)
+    if kind == "planar":
+        from new_bloom_filter_repo_tpu_torch.utils.yuvframe import YUVFrame
+        y0 = rng.integers(0, 200, (h, w), dtype=np.uint8)
+        u = rng.integers(0, 200, (h // 2, w // 2), dtype=np.uint8)
+        frames = []
+        for i in range(n):
+            y = y0.copy()
+            y[8:16, 2 + 3 * i:10 + 3 * i] = 250
+            up = np.repeat(np.repeat(u, 2, 0), 2, 1)
+            frames.append(YUVFrame(np.stack([y, up, up], -1), {
+                "format": "I420", "y_plane": y, "u_plane": u.copy(),
+                "v_plane": u.copy()}))
+        return frames
+    dtype, c = {"uint16": (np.uint16, 3), "float32": (np.float32, 3),
+                "bgra": (np.uint8, 4)}.get(kind, (np.uint8, 3))
+    base = (rng.random((h, w, c)) * 200).astype(dtype)
+    if dtype == np.float32:
+        base[1, 2, 0] = np.nan
+    frames = []
+    for i in range(n):
+        f = base.copy()
+        f[8:20, 3 + 4 * i:13 + 4 * i] = 255
+        m = rng.random((h, w)) < 0.02
+        f[m] = 17 + i
+        frames.append(f)
+    return frames
+
+
+OTHER = {
+    "planar": ("planar", {"profile": "planar"}),
+    "uint16": ("uint16", {}),
+    "float32": ("float32", {}),
+    "bgra": ("bgra", {}),
+    "bfv2": ("rgb", {"profile": "bfv2"}),
+    "near_lossless": ("rgb", {"exact": False}),
+    "keyframe": ("rgb", {"mode": "keyframe"}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OTHER))
+def test_other_paths_cuda_stream_equals_cpu_stream(dev, tmp_path, name):
+    kind, kw = OTHER[name]
+    frames = other_clip(kind)
+    cs = "YUV" if kind == "planar" else "BGR"
+    paths = []
+    for d in (dev, "cpu"):
+        paths.append(str(tmp_path / f"{d}.bfvc"))
+        ImprovedVideoCompressor(device=d, keyframe_interval=8,
+                                **kw).compress_video(frames, paths[-1],
+                                                     input_color_space=cs)
+    with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+        assert a.read() == b.read()
+    dec = ImprovedVideoCompressor(device=dev, **kw).decompress_video(paths[0])
+    ref = ImprovedVideoCompressor(device="cpu", **kw).decompress_video(
+        paths[0])
+    for g, w, f in zip(dec, ref, frames):
+        assert np.asarray(g).tobytes() == np.asarray(w).tobytes()
+        if name != "near_lossless":
+            assert np.asarray(g).tobytes() == np.asarray(f).tobytes()
+
+
+def test_bloom_ops_on_the_card_equal_cpu(dev):
+    from new_bloom_filter_repo_tpu_torch.models.binary_codec import (
+        BloomFilterCompressor)
+    from new_bloom_filter_repo_tpu_torch.ops import median
+
+    rng = np.random.default_rng(3)
+    for density in (0.01, 0.1, 0.3, 0.5):
+        bits = (rng.random(200 * 300) < density).astype(np.uint8)
+        got = BloomFilterCompressor(device=dev).compress(bits)
+        want = BloomFilterCompressor(device="cpu").compress(bits)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        k32 = float(np.float32(BloomFilterCompressor()
+                               ._calculate_optimal_params(len(bits),
+                                                          got[2])[0]))
+        out = BloomFilterCompressor(device=dev).decompress(
+            got[0], got[1], len(bits), k32)
+        np.testing.assert_array_equal(out, bits)
+    img = rng.integers(0, 256, (90, 120), dtype=np.uint8)
+    assert torch.equal(median.median_blur(torch.from_numpy(img).to(dev)).cpu(),
+                       median.median_blur(torch.from_numpy(img)))

@@ -1,10 +1,12 @@
-"""The PyTorch port's multi-device blocked path on a CPU mesh.
+"""The PyTorch port's multi-device paths on a CPU mesh.
 
 Meshes repeat the CPU device (``make_mesh(dp, sp, ["cpu"] * dp * sp)``),
 the counterpart of the JAX tests' virtual host devices, so each shard
 runs the kernels' plain twins.  Every sharded program must equal the
 unsharded wrapper on the same seeded inputs, exactly, for uneven shards
-and empty shards too.
+and empty shards too: the blocked factories (``parallel/blocked_batch``)
+and the BFV2 ones (``parallel/batch``), which are also held to the JAX
+package's sharded programs.
 """
 
 import numpy as np
@@ -268,10 +270,6 @@ def test_dryrun_blocked_dp(layout, capsys):
 
 
 def test_unported_entry_points_raise():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        graft_entry.entry()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        graft_entry.dryrun_multichip(8)
     from new_bloom_filter_repo_tpu_torch.parallel.mesh import (
         initialize_distributed)
     with pytest.raises(NotImplementedError, match="item 11"):
@@ -317,6 +315,207 @@ def test_devices_option_resolution():
                                    device="cpu").mesh.size == 1
     with pytest.raises(ValueError, match="device type"):
         ImprovedVideoCompressor(devices=cpu_mesh(2, 1), device="cuda")
-    for kwargs in ({"profile": "bfv2"}, {"exact": False}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            ImprovedVideoCompressor(devices=cpu_mesh(2, 1), **kwargs)
+    for kwargs in ({"profile": "bfv2"}, {"exact": False},
+                   {"profile": "planar"}, {"mode": "keyframe"}):
+        comp = ImprovedVideoCompressor(devices=cpu_mesh(2, 1), **kwargs)
+        assert comp.mesh.shape == {"dp": 2, "sp": 1}
+        assert comp.bloom_compressor.device == torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# parallel/batch.py: the BFV2 factories
+# ---------------------------------------------------------------------------
+
+def _bfv2_batch(n=2048, densities=(0.05, 0.12, 0.2, 0.29, 0.01, 0.08, 0.16,
+                                   0.31)):
+    """The batch of the JAX package's tests/test_parallel.py: bits and
+    their per-frame (l, t_hi, t_lo, floor_k) as int64 tensors."""
+    rng = np.random.default_rng(0)
+    bits = np.stack([(rng.random(n) < d).astype(np.uint8)
+                     for d in densities])
+    return bits, graft_entry._filter_batch(bits)
+
+
+BFV2_MESHES = [(1, 8), (2, 4), (4, 2), (8, 1), (3, 5)]
+
+
+@pytest.mark.parametrize("layout", BFV2_MESHES,
+                         ids=lambda x: f"dp{x[0]}sp{x[1]}")
+def test_sharded_encode_decode_equal_unsharded(layout):
+    """dp = 3 over 8 frames and sp = 5 over 2048 items are uneven."""
+    from new_bloom_filter_repo_tpu_torch.ops import bloom_core as tbc
+    from new_bloom_filter_repo_tpu_torch.ops.hashtables import (
+        get_hash_tables)
+    from new_bloom_filter_repo_tpu_torch.parallel import batch as pbatch
+
+    n = 2048
+    bits, scal = _bfv2_batch(n)
+    t = get_hash_tables(n)
+    tables = (*t.h1, *t.h2, *t.act)
+    sc = [torch.from_numpy(x) for x in scal]
+    l_pad = tbc.bitmap_pad(n)
+    mesh = cpu_mesh(*layout)
+    arrs, wit, counts = pbatch.make_sharded_encode(mesh, n, l_pad)(
+        torch.from_numpy(bits), tables, *sc)
+    for i in range(len(bits)):
+        ref = tbc.encode_core(torch.from_numpy(bits[i]), t.h1, t.h2, t.act,
+                              *(int(x[i]) for x in scal[:3]),
+                              floor_k=int(scal[3][i]), l_pad=l_pad)
+        assert torch.equal(arrs[i], ref[0])
+        assert int(counts[i]) == int(ref[3])
+        assert torch.equal(wit[i], ref[2])
+    out = pbatch.make_sharded_decode(mesh, n, l_pad)(arrs, wit, tables, *sc)
+    assert torch.equal(out, torch.from_numpy(bits))
+
+
+def test_sharded_encode_equals_jax_sharded_encode():
+    import jax
+    import jax.numpy as jnp
+    from new_bloom_filter_repo_tpu.ops.hashtables import get_hash_tables
+    from new_bloom_filter_repo_tpu.parallel import batch as jbatch
+    from new_bloom_filter_repo_tpu.parallel.mesh import make_mesh as jmesh
+    from new_bloom_filter_repo_tpu_torch.ops.hashtables import (
+        hash_tables_from_numpy)
+    from new_bloom_filter_repo_tpu_torch.parallel import batch as pbatch
+
+    n = 2048
+    bits, scal = _bfv2_batch(n)
+    jt = get_hash_tables(n, "video")
+    l_pad = 768
+    want = jbatch.make_sharded_encode(
+        jmesh(2, 4, devices=jax.devices("cpu")), n, l_pad)(
+            jnp.asarray(bits),
+            (jt.h1[0], jt.h1[1], jt.h2[0], jt.h2[1], jt.act[0], jt.act[1]),
+            *(jnp.asarray(x.astype(np.uint32)) for x in scal[:3]),
+            jnp.asarray(scal[3].astype(np.int32)))
+    tt = hash_tables_from_numpy(jt)
+    got = pbatch.make_sharded_encode(cpu_mesh(2, 4), n, l_pad)(
+        torch.from_numpy(bits), (*tt.h1, *tt.h2, *tt.act),
+        *(torch.from_numpy(x) for x in scal))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("dp", [2, 3])
+def test_gop_factories_equal_unsharded(dp):
+    """A 5-frame chunk over dp = 2 (3 + 2) and dp = 3 (2 + 2 + 1)."""
+    from new_bloom_filter_repo_tpu_torch.models import gop
+    from new_bloom_filter_repo_tpu_torch.ops import bloom_core as tbc
+    from new_bloom_filter_repo_tpu_torch.ops.hashtables import (
+        get_hash_tables)
+    from new_bloom_filter_repo_tpu_torch.parallel import batch as pbatch
+    from test_torch_bloom_core import chunk_scalars, gop_chunk
+
+    frames = torch.from_numpy(gop_chunk(False))
+    n = frames.shape[1] * frames.shape[2]
+    mesh = cpu_mesh(dp, 1)
+    want = gop.gop_masks(frames)
+    got = pbatch.make_gop_masks_dp(mesh)(frames[:-1], frames[1:])
+    _assert_same(tuple(got), tuple(want))
+    l, thi, tlo, fk, flags = chunk_scalars(want[2].numpy(), n)
+    sc = [torch.from_numpy(x.astype(np.int64)) for x in (l, thi, tlo, fk)]
+    t = get_hash_tables(n)
+    kw = {"l_pad": tbc.bitmap_pad(n), "vmax": 1024}
+    enc = gop.gop_encode(want[0], frames[1:], t.h1, t.h2, t.act, *sc, **kw)
+    _assert_same(tuple(pbatch.make_gop_encode_dp(mesh, **kw)(
+        want[0], frames[1:], t.h1, t.h2, t.act, *sc)), tuple(enc))
+    bitmaps = torch.nn.functional.pad(
+        enc[0], (0, want[1].shape[1] - enc[0].shape[1]))
+    pbm = torch.where(torch.from_numpy(flags)[:, None] > 0, want[1], bitmaps)
+    fargs = (pbm, enc[1], enc[3], torch.from_numpy(flags), t.h1, t.h2,
+             t.act, *sc)
+    fields = gop.gop_decode_fields(*fargs, n=n, vmax=1024)
+    _assert_same(tuple(pbatch.make_gop_decode_fields_dp(
+        mesh, n=n, vmax=1024)(*fargs)), tuple(fields))
+
+
+def test_shard_batch_arrays_layout():
+    from new_bloom_filter_repo_tpu_torch.parallel import batch as pbatch
+
+    bits = torch.arange(5 * 10, dtype=torch.int64).view(5, 10)
+    tables = (torch.arange(10), torch.arange(10) * 2)
+    scalars = (torch.arange(5),)
+    b, t, s = pbatch.shard_batch_arrays(cpu_mesh(2, 3), bits, tables,
+                                        scalars)
+    assert [[x.shape for x in row] for row in b] == [
+        [(3, 4), (3, 3), (3, 3)], [(2, 4), (2, 3), (2, 3)]]
+    assert torch.equal(b[1][2], bits[3:, 7:])
+    assert torch.equal(t[1][0][2], tables[1][7:])
+    assert torch.equal(s[0][1][0], scalars[0][3:])
+
+
+@pytest.mark.parametrize("layout", [(4, 1), (2, 2)],
+                         ids=lambda x: f"dp{x[0]}sp{x[1]}")
+def test_dryrun_multichip_on_a_cpu_mesh(layout, capsys):
+    out = graft_entry.dryrun_multichip(cpu_mesh(*layout))
+    printed = capsys.readouterr().out
+    dp, sp = layout
+    assert (f"dryrun_multichip OK: mesh dp={dp} sp={sp}, batch={2 * dp}, "
+            f"n={512 * sp}") in printed
+    assert "blocked-dp OK" in printed
+    assert torch.equal(out["decoded"], out["bits"])
+
+
+def test_entry_step_equals_jax_entry():
+    import jax
+    import __graft_entry__ as jentry
+
+    fn, args = graft_entry.entry()
+    jfn, jargs = jentry.entry()
+    got = fn(*args)
+    want = [np.asarray(w) for w in jax.jit(jfn)(*jargs)]
+    l = int(args[7])
+    # the bit arrays differ only in their zero pad (bloom_core.bitmap_pad)
+    np.testing.assert_array_equal(got[0][:l].numpy(), want[0][:l])
+    assert not got[0][l:].any() and not want[0][l:].any()
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert int(got[2]) > 0
+
+
+def test_dryrun_multichip_with_a_count_needs_the_cards():
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("the machine has two CUDA cards")
+    with pytest.raises(ValueError, match="need 2 cuda devices"):
+        graft_entry.dryrun_multichip(2)
+
+
+@pytest.mark.parametrize("profile", ["bfv2", "planar"])
+def test_devices_mesh_equals_jax_single_device(tmp_path, monkeypatch,
+                                               profile):
+    """devices= on CPU meshes: the stream equals the JAX package's
+    single-device file, decodes bit-exactly through the mesh, and (bfv2)
+    runs the sharded gop stages."""
+    from new_bloom_filter_repo_tpu.models.video import (
+        ImprovedVideoCompressor as JaxCompressor)
+    from new_bloom_filter_repo_tpu_torch.parallel import batch as pbatch
+    from test_torch_profiles import yuv_clip
+    from test_video_api import make_video
+
+    calls = []
+    for name in ("make_gop_masks_dp", "make_gop_encode_dp",
+                 "make_gop_decode_fields_dp"):
+        real = getattr(pbatch, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls.append(_name)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(pbatch, name, spy)
+    if profile == "bfv2":
+        frames, cs, kw = make_video(n=20, h=48, w=64, seed=7), "BGR", {
+            "profile": "bfv2", "keyframe_interval": 8}
+    else:
+        frames, cs, kw = yuv_clip("I420"), "YUV", {
+            "profile": "planar", "keyframe_interval": 5}
+    jpath, tpath = str(tmp_path / "jax.bfvc"), str(tmp_path / "mesh.bfvc")
+    JaxCompressor(**kw).compress_video(frames, jpath, input_color_space=cs)
+    comp = ImprovedVideoCompressor(devices=cpu_mesh(3, 2), **kw)
+    comp.compress_video(frames, tpath, input_color_space=cs)
+    with open(jpath, "rb") as a, open(tpath, "rb") as b:
+        assert a.read() == b.read()
+    for g, w in zip(comp.decompress_video(tpath), frames):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    if profile == "bfv2":
+        assert set(calls) == {"make_gop_masks_dp", "make_gop_encode_dp",
+                              "make_gop_decode_fields_dp"}
