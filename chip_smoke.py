@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only
 
 Drives the port's main path, ``ImprovedVideoCompressor(device="cuda")``
 (blocked profile, exact, motion on), through ``compress_video`` and
@@ -14,15 +15,23 @@ its plain PyTorch twin on the card.  Phases:
 1. device: the card, its power limit, the kernel build;
 2. kernel vs twin at the 1080p chunk shapes (F = 15, NB = 2032), on the
    inputs of a real chunk and on a mix with edge-case filter widths,
-   pass-through flags and raw masks, and at the shapes the other paths
+   pass-through flags and raw masks, at the shapes the other paths
    give the kernels: the first chunk of the phase-8 U plane (960x540,
-   NB = 507) and of each phase-9 clip's byte view (NB = 12150, 24300
-   and 8100); exact equality (tolerance 0); K5a and K5b run on the
-   ``_frame_mod_tables`` of the same inputs and must also equal K1 and
-   K2;
+   NB = 512) and of each phase-9 clip's byte view (NB = 12152, 24304
+   and 8104), and on the m sweep: every sub-filter width the stream
+   admits (m = 1 and 16..384) over 25 launches of 15 frames at NB = 64,
+   then F = 1, F = 16, NB = 1 and NB = 513; exact equality (tolerance
+   0); K5a and K5b run on the ``_frame_mod_tables`` of the same inputs
+   and must also equal K1 and K2.  On the real chunk each kernel is
+   timed warm (mean of 20 launches queued behind a spin of the card, so
+   the host's launch cost does not show), K1 and K2 also cold (each
+   launch after a 128 MiB write that evicts the L2, the launch alone
+   timed), and the bytes each kernel must move give its bound at the
+   H100's 3.35 TB/s;
 3. the bench clip (1920x1080x3, 31 frames), round trip bit-exact;
 4. the synthetic ``pan`` clip (seed 0, 31 frames, 1080p), round trip
-   bit-exact, with type-6 motion records;
+   bit-exact, with type-6 motion records; the launches of each kernel
+   per clip of phases 3 and 4 are printed;
 5. CIF clips (352x288, 16 frames) encoded on the card and on the CPU
    (the twins and the CPU torch ops) to identical ``.bfvc`` bytes: the
    blocked profile, ``profile="planar"`` (I420), uint16 frames (the
@@ -61,15 +70,22 @@ Phases 8-11 time each round trip once as it is (the path's fps) and
 then once more under a stage timer, which synchronises the card around
 its device stages, for the breakdown of where the time goes.
 
-Phases 3-4, 6, 7, 8 and 9 are the paths of the kernels: every kernel's
-launch count is set to 0 just before each and read just after, and a
-kernel its path must launch that it did not fails the run (K1-K4 on
-phases 3-4; K5a, K5b and K4 on phase 6; K1-K4 on phase 7; K1, K2 and K3
-or K4 on phase 8; K1-K3 on phase 9).  Every phase that fails raises;
-nothing falls back to the CPU.  The second-to-last lines are the
+Phases 3, 4, 6, 7, 8 and 9 are the paths of the kernels: every
+kernel's launch count is set to 0 just before each and read just
+after, and a kernel its path must launch that it did not fails the run
+(K1-K3 on phase 3; K1, K2 and K4 on phase 4; K5a, K5b and K4 on phase
+6; K1-K4 on phase 7; K1, K2 and K3 or K4 on phase 8; K1-K3 on phase
+9).  Every phase that fails raises; nothing falls back to the CPU.
+The second-to-last lines are the
 per-kernel JSON (launches summed over the path runs) and the card's
 name and power limit; the last line is ``{"ok": true, "device":
-{...}}``.  Exits non-zero without a CUDA card.
+{...}}``.  Beside the contract's keys, each kernel's entry carries the
+``bytes`` behind ``bound_ms``, ``cold_ms`` (K1, K2) and its ptxas
+registers and spill bytes.  Exits non-zero without a CUDA card.
+
+``--kernels-only`` stops after phase 2 and prints no JSON: a copy of
+this script put at the root of another checkout (an older commit)
+times that checkout's kernels the same way, in the same call.
 """
 
 from __future__ import annotations
@@ -89,17 +105,21 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port_pan.bfvc")
 CSRC = "new_bloom_filter_repo_tpu_torch/ops/csrc/blocked.cu"
 TPU_KERNELS = "new_bloom_filter_repo_tpu/ops/pallas/blocked.py"
-# kernel wrapper name -> (short name, pallas_call line it replaces)
+# kernel wrapper name -> (short name, pallas_call line it replaces, the
+# kernel's entry function in CSRC)
 KERNELS = {
-    "blocked_encode_h": ("K1", 660),
-    "blocked_membership_h": ("K2", 703),
-    "blocked_expand_chain": ("K3", 832),
-    "blocked_expand": ("K4", 774),
-    "blocked_encode": ("K5a", 595),
-    "blocked_membership": ("K5b", 740),
+    "blocked_encode_h": ("K1", 660, "k1_encode"),
+    "blocked_membership_h": ("K2", 703, "k2_membership"),
+    "blocked_expand_chain": ("K3", 832, "k3_expand_chain"),
+    "blocked_expand": ("K4", 774, "k4_expand"),
+    "blocked_encode": ("K5a", 595, "k5a_encode"),
+    "blocked_membership": ("K5b", 740, "k5b_membership"),
 }
 H, W = 1080, 1920
 CHUNK = 15
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
+FLUSH_BYTES = 128 << 20       # > 2x the 50 MB L2
+SPIN_CYCLES = 50_000_000      # ~25 ms of card time to queue launches behind
 
 
 def log(msg: str) -> None:
@@ -147,15 +167,17 @@ def chunk_args(frames, dev):
              vals, *bp.frame_scalars(dev, m, thi, tlo, fk)), geom)
 
 
-def edge_mix_args(tab, f, dev, seed=1):
-    """K1 arguments spanning the stream's range: m from 16 to 384, floor
-    k from 0 to 12, per-frame change densities from 0.1% to 30%, random
+def edge_mix_args(tab, m, dev, seed=1, nb=None):
+    """K1 arguments over the first ``nb`` (default all) blocks of ``tab``
+    with the per-frame sub-filter bits ``m`` (one frame each): floor k
+    from 0 to 12, per-frame change densities from 0.1% to 30%, random
     activation thresholds; vh = 32 so every change fits."""
     import torch
 
     rng = np.random.default_rng(seed)
-    nb = tab["nb"]
-    m = np.linspace(16, 384, f).round().astype(np.int32)
+    nb = tab["nb"] if nb is None else nb
+    m = np.asarray(m, dtype=np.int32)
+    f = len(m)
     fk = (np.arange(f) % 13).astype(np.int32)
     thi = rng.integers(0, 1 << 32, f, dtype=np.uint64).astype(np.uint32)
     tlo = rng.integers(0, 1 << 32, f, dtype=np.uint64).astype(np.uint32)
@@ -166,7 +188,8 @@ def edge_mix_args(tab, f, dev, seed=1):
     def t(a):
         return torch.from_numpy(a).to(dev)
 
-    args = (t(bits), tab["h1"], tab["h2"], tab["act_hi"], tab["act_lo"],
+    args = (t(bits), *(tab[k][:nb] for k in ("h1", "h2", "act_hi",
+                                              "act_lo")),
             t(vals), t(m), t(thi.view(np.int32)), t(tlo.view(np.int32)),
             t(fk))
     return args, {"k_lanes": int(fk.max()), "vh": 32,
@@ -175,19 +198,43 @@ def edge_mix_args(tab, f, dev, seed=1):
 
 def time_ms(fn, reps: int) -> float:
     """Mean device milliseconds of ``fn`` over ``reps`` calls, after one
-    warm-up call, timed with CUDA events."""
+    warm-up call, timed with CUDA events.  The calls are queued behind a
+    spin of the card, so the host's launch overhead does not show."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_cold_ms(fn, reps: int = 20) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` calls, each after
+    a write of FLUSH_BYTES to a scratch tensor (which evicts the 50 MB
+    L2), timed with CUDA events around the call alone."""
+    import torch
+
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                          device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SPIN_CYCLES)
+    for i, (start, end) in enumerate(events):
+        scratch.fill_(i)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
 def max_abs_err(got, want) -> int:
@@ -206,11 +253,11 @@ def max_abs_err(got, want) -> int:
 
 
 def kernel_cases(enc_args, enc_kw, dev, flagged: bool, seed: int):
-    """(name, kernel call, twin call) for K1-K5b on one input mix.  The
-    decode kernels take K1's outputs (the twin's, which the kernel must
-    equal); K5a and K5b take the ``_frame_mod_tables`` of K1's and K2's
-    inputs; with ``flagged``, every third frame is a pass-through frame
-    with a random raw mask."""
+    """[(name, kernel call, twin call)] for K1-K5b on one input mix, and
+    the mix's flags.  The decode kernels take K1's outputs (the twin's,
+    which the kernel must equal); K5a and K5b take the
+    ``_frame_mod_tables`` of K1's and K2's inputs; with ``flagged``,
+    every third frame is a pass-through frame with a random raw mask."""
     import torch
     from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as bp
     from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
@@ -254,7 +301,7 @@ def kernel_cases(enc_args, enc_kw, dev, flagged: bool, seed: int):
         ("blocked_membership",
          lambda: bk.blocked_membership(*mem5, k_lanes=k_lanes, nw=nw),
          lambda: bk.blocked_membership_ref(*mem5, k_lanes=k_lanes, nw=nw)),
-    ]
+    ], flags
 
 
 # K5a/K5b must equal K1/K2 on the materialized tables of the same inputs
@@ -262,36 +309,130 @@ SAME_AS = {"blocked_encode": "blocked_encode_h",
            "blocked_membership": "blocked_membership_h"}
 
 
+def sweep_mixes(dev):
+    """(label, K1 args, K1 kwargs, flagged) of the m sweep: every m the
+    stream can hold (1 and MIN_M = 16 to 384) in ascending order over 25
+    launches of 15 frames at NB = 64, then the shapes F = 1, F = 16,
+    NB = 1 and NB = 513 (not a multiple of any frame group) at random
+    such m, with pass-through frames."""
+    from new_bloom_filter_repo_tpu_torch.ops.hashtables import blocked_tables
+
+    ms = [1] + list(range(16, 385))
+    ms += ms[-(25 * CHUNK - len(ms)):]
+    small = blocked_tables(64 * 1024, dev)
+    for i in range(25):
+        m = ms[i * CHUNK:(i + 1) * CHUNK]
+        yield (f"m sweep {i + 1}/25 (m {m[0]}..{m[-1]})",
+               *edge_mix_args(small, m, dev, seed=10 + i), False)
+    rng = np.random.default_rng(7)
+    wide = blocked_tables(520 * 1024, dev)
+    for label, tab, f, nb in (("F=1", small, 1, 64), ("F=16", small, 16, 64),
+                              ("NB=1", small, CHUNK, 1),
+                              ("NB=513", wide, CHUNK, 513)):
+        yield (f"shape {label}",
+               *edge_mix_args(tab, rng.choice(ms, f), dev, seed=40, nb=nb),
+               True)
+
+
+def kernel_bytes(enc_args, kw, flags, want):
+    """Bytes each kernel must move on one mix: every input it needs read
+    once, every output written once.  Counted as this mix's data needs
+    them: values of the changed items only (up to the segment's slots),
+    sub-filter words, hash or position tables and witness segments of
+    unflagged frames only, raw masks of flagged frames only.  ``want``:
+    the twins' outputs by wrapper name."""
+    f, nb, ipb = enc_args[0].shape
+    items = f * nb * ipb
+    nw, vslots = kw["nw"], kw["vh"] * 32
+    words, wit, wcnt, vseg, vcnt = want["blocked_encode_h"]
+    fl = int((flags != 0).sum())
+    fu = f - fl
+    enc_out = (4 * words.numel() + wit.numel() + 4 * wcnt.numel()
+               + 4 * vseg.numel() + 4 * vcnt.numel())
+    chg_vals = 4 * int(vcnt.clamp(max=vslots).sum())
+    tables = 16 * nb * ipb
+    mask = want["blocked_expand"][0]
+    mask_vals = 4 * int(mask.sum(dim=-1).clamp(max=vslots).sum())
+    expand_in = (fu * nb * (ipb + 128) + fl * nb * ipb + 4 * f
+                 + mask_vals)
+    mem_out = items + 4 * f * nb
+    return {
+        "blocked_encode_h": items + tables + chg_vals + 16 * f + enc_out,
+        "blocked_membership_h": (4 * nw * fu * nb + (tables if fu else 0)
+                                 + 20 * f + mem_out),
+        "blocked_expand_chain": expand_in + 4 * nb * ipb + 4 * items,
+        "blocked_expand": expand_in + items + 4 * items,
+        "blocked_encode": 10 * items + chg_vals + 8 * f + enc_out,
+        "blocked_membership": (4 * nw * fu * nb + 9 * fu * nb * ipb
+                               + 12 * f + mem_out),
+    }
+
+
+COLD = ("blocked_encode_h", "blocked_membership_h")
+
+
+def time_parts(enc_args, kw, words, reps):
+    """K1 and K2 on the real chunk with one part of their work taken
+    away, to show where their time goes: K1 with no changed item (no
+    OR-insert, witness bit or value), K1 with vh = 1 (32 value slots a
+    block in place of vh * 32), K2 with every frame flagged (no
+    membership test; the passes are zeros)."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+
+    bits, h1, h2, ahi, alo, _, m, thi, tlo, fk = enc_args
+    none = (torch.zeros_like(bits),) + tuple(enc_args[1:])
+    flags = torch.ones(bits.shape[0], dtype=torch.int32, device=bits.device)
+    mem = (words, h1, h2, ahi, alo, m, thi, tlo, fk, flags)
+    return {
+        "K1 with no changed item": time_ms(
+            lambda: bk.blocked_encode_h(*none, **kw), reps),
+        "K1 with vh = 1": time_ms(
+            lambda: bk.blocked_encode_h(*enc_args, **{**kw, "vh": 1}), reps),
+        "K2 with every frame flagged": time_ms(
+            lambda: bk.blocked_membership_h(*mem, k_lanes=kw["k_lanes"],
+                                            nw=kw["nw"]), reps)}
+
+
 def phase_kernels(dev, frames, path_chunks=(), reps: int = 20,
                   twin_reps: int = 3):
     """Every kernel against its twin on the first chunk of ``frames``, on
-    an edge mix at its shape, and on the first chunk of each clip of
-    ``path_chunks`` ((label, frames) at the other paths' shapes), each
-    mix built just before it runs; returns {wrapper name: {max_abs_err,
-    ms, plain_ms}} (times from the first chunk of ``frames``)."""
+    an edge mix at its shape, on the first chunk of each clip of
+    ``path_chunks`` ((label, frames) at the other paths' shapes) and on
+    the m sweep, each mix built just before it runs; returns {wrapper
+    name: {max_abs_err, ms, plain_ms, bytes, bound_ms (, cold_ms)}}
+    (times and bytes from the first chunk of ``frames``)."""
     import torch
     from new_bloom_filter_repo_tpu_torch.ops.hashtables import blocked_tables
 
     def mixes():
-        yield ("real chunk", *chunk_args(frames, dev), False, 0)
+        # (label, args, kwargs, flagged, seed of the raw masks, quiet)
+        yield ("real chunk", *chunk_args(frames, dev), False, 0, False)
         h, w = frames[0].shape[:2]
         tab = blocked_tables(h * w, dev)
-        yield ("edge mix + flags", *edge_mix_args(tab, CHUNK, dev), True, 2)
+        yield ("edge mix + flags",
+               *edge_mix_args(tab, np.linspace(16, 384, CHUNK).round(), dev),
+               True, 2, False)
         for label, clip in path_chunks:
-            yield (label, *chunk_args(clip, dev), False, 0)
+            yield (label, *chunk_args(clip, dev), False, 0, False)
+        for label, args, kw, flagged in sweep_mixes(dev):
+            yield (label, args, kw, flagged, 3, True)
 
     out = {}
-    for label, args, kw, flagged, seed in mixes():
+    for label, args, kw, flagged, seed, quiet in mixes():
         bits = args[0]
-        log(f"  mix {label}: F={bits.shape[0]} NB={bits.shape[1]} "
-            f"k_lanes={kw['k_lanes']} nw={kw['nw']} vh={kw['vh']}")
-        got_by_name = {}
-        for name, kern, twin in kernel_cases(args, kw, dev, flagged, seed):
+        head = (f"  mix {label}: F={bits.shape[0]} NB={bits.shape[1]} "
+                f"k_lanes={kw['k_lanes']} nw={kw['nw']} vh={kw['vh']}")
+        if not quiet:
+            log(head)
+        got_by_name, want_by_name, worst = {}, {}, 0
+        cases, flags = kernel_cases(args, kw, dev, flagged, seed)
+        for name, kern, twin in cases:
             got = kern()
             want = twin()
             torch.cuda.synchronize()
             err = max_abs_err(got, want)
-            got_by_name[name] = got
+            got_by_name[name], want_by_name[name] = got, want
             rec = out.setdefault(name, {"max_abs_err": 0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             line = f"    {KERNELS[name][0]} {name}: max_abs_err={err}"
@@ -305,11 +446,32 @@ def phase_kernels(dev, frames, path_chunks=(), reps: int = 20,
                 rec["plain_ms"] = time_ms(twin, twin_reps)
                 line += (f"; kernel {rec['ms']:.4f} ms, plain twin "
                          f"{rec['plain_ms']:.4f} ms")
-            log(line)
+                if name in COLD:
+                    rec["cold_ms"] = time_cold_ms(kern, reps)
+                    line += (f", kernel after an L2 flush "
+                             f"{rec['cold_ms']:.4f} ms")
+            if not quiet:
+                log(line)
+            worst = max(worst, err)
             if err != 0:
                 raise AssertionError(f"{name} disagrees with its twin or "
                                      f"its hash-prelude kernel on {label}: "
                                      f"max_abs_err={err}")
+        if quiet:
+            log(f"{head}: all six max_abs_err={worst}")
+        if label == "real chunk":
+            parts = time_parts(args, kw, want_by_name["blocked_encode_h"][0],
+                               reps)
+            log("    parts: " + ", ".join(f"{k} {v:.4f} ms"
+                                          for k, v in parts.items()))
+            for name, n in kernel_bytes(args, kw, flags,
+                                        want_by_name).items():
+                out[name]["bytes"] = n
+                out[name]["bound_ms"] = n / HBM_BYTES_PER_S * 1e3
+                log(f"    {KERNELS[name][0]} moves {n} bytes: bound "
+                    f"{out[name]['bound_ms']:.4f} ms at "
+                    f"{HBM_BYTES_PER_S / 1e12} TB/s, kernel at "
+                    f"{out[name]['bound_ms'] / out[name]['ms']:.3f} of it")
     return out
 
 
@@ -394,21 +556,26 @@ def path_launches(label: str, needed):
 
 
 def phase_main_path(dev, bench_frames, pan_frames, tmp, card):
+    """Phases 3-4; the launch counts are read per clip (the launches per
+    main-path clip of PERF.md's kernel table) and summed."""
     from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
 
     bk.reset_launches()
     round_trip("phase 3 static 1080p (bench clip)", bench_frames, dev,
                os.path.join(tmp, "static.bfvc"), card)
+    static = path_launches("static clip", ["blocked_encode_h",
+                                           "blocked_membership_h",
+                                           "blocked_expand_chain"])
+    bk.reset_launches()
     pan_hist, _ = round_trip("phase 4 pan 1080p (synthetic, seed 0)",
                              pan_frames, dev, os.path.join(tmp, "pan.bfvc"),
                              card)
-    launches = path_launches("main path", ["blocked_encode_h",
-                                           "blocked_membership_h",
-                                           "blocked_expand_chain",
-                                           "blocked_expand"])
+    pan = path_launches("pan clip", ["blocked_encode_h",
+                                     "blocked_membership_h",
+                                     "blocked_expand"])
     if not any(k.startswith("6>") for k in pan_hist):
         raise AssertionError("pan clip produced no type-6 motion record")
-    return launches
+    return {n: static[n] + pan[n] for n in static}
 
 
 def phase_parity(dev, tmp):
@@ -1010,12 +1177,16 @@ def main() -> int:
     log(f"phase 1 device: {kind} | nvidia-smi: {smi} | torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
     _build.load()
-    log(f"  kernels built from {CSRC} in {_build.build_seconds:.2f} s "
-        f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    built = ("found already built" if _build.build_seconds is None
+             else f"built in {_build.build_seconds:.2f} s")
+    log(f"  kernels from {CSRC} {built} (nvcc "
+        f"{' '.join(_build.NVCC_FLAGS)})")
+    ptxas = {}
     for name, spills, regs in re.findall(
             r"Compiling entry function '\S*?(k\d[ab]?_[a-z_]+)\S*'.*?"
             r"(\d+) bytes spill stores.*?Used (\d+) registers",
             _build.build_log, re.S):
+        ptxas[name] = (int(regs), int(spills))
         log(f"    ptxas {name}: {regs} registers, {spills} bytes spilled")
 
     t0 = time.perf_counter()
@@ -1032,6 +1203,8 @@ def main() -> int:
                      [ImprovedVideoCompressor._byte_view(f) for f in clip])
                     for label, clip in byte_clips]
     stats = phase_kernels(dev, bench, path_chunks)
+    if "--kernels-only" in sys.argv[1:]:
+        return 0
     with tempfile.TemporaryDirectory() as tmp:
         log("phases 3-4 main path:")
         runs = [phase_main_path(dev, bench, pan, tmp, smi)]
@@ -1051,13 +1224,18 @@ def main() -> int:
         phase_near_lossless(dev, bench[:16], tmp, smi)
     launches = {n: sum(r[n] for r in runs) for n in KERNELS}
 
-    kernels = [{"name": f"{KERNELS[n][0]} {n}", "route": "cuda",
-                "source": CSRC,
-                "replaces": f"{TPU_KERNELS}:{KERNELS[n][1]}",
-                "launches": launches[n],
-                "max_abs_err": stats[n]["max_abs_err"],
-                "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"]}
-               for n in KERNELS]
+    kernels = []
+    for n, (short, line, entry) in KERNELS.items():
+        st = stats[n]
+        regs, spills = ptxas.get(entry, (None, None))
+        kernels.append({
+            "name": f"{short} {n}", "route": "cuda", "source": CSRC,
+            "replaces": f"{TPU_KERNELS}:{line}", "launches": launches[n],
+            "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "bytes": st["bytes"],
+            "cold_ms": st.get("cold_ms"), "ptxas_registers": regs,
+            "ptxas_spill_bytes": spills})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

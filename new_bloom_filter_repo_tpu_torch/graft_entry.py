@@ -36,7 +36,11 @@ from new_bloom_filter_repo_tpu_torch.ops import bloom_core
 from new_bloom_filter_repo_tpu_torch.ops.hashtables import get_hash_tables
 from new_bloom_filter_repo_tpu_torch.parallel import batch as pbatch
 from new_bloom_filter_repo_tpu_torch.parallel import blocked_batch
-from new_bloom_filter_repo_tpu_torch.parallel.mesh import Mesh, auto_mesh
+from new_bloom_filter_repo_tpu_torch.parallel.mesh import (
+    Mesh,
+    auto_mesh,
+    default_device,
+)
 
 
 def dryrun_inputs(f: int, nb: int, seed: int = 1):
@@ -90,9 +94,11 @@ def _filter_batch(bits: np.ndarray):
     return [np.array(col, np.int64) for col in zip(*rows)]
 
 
-def entry():
+def entry(device=None):
     """(fn, example_args): the single-frame Bloom encode step, n = 4096
-    items at 10 % density, on the CPU."""
+    items at 10 % density, with the example on ``device`` (default: the
+    current CUDA card; without a card, pass ``device="cpu"``)."""
+    dev = default_device(device)
     n = 4096
     l_pad = bloom_core.bitmap_pad(n)
     k_max = bloom_core.MAX_LANES
@@ -108,9 +114,10 @@ def entry():
 
     rng = np.random.default_rng(0)
     bits = (rng.random((1, n)) < 0.1).astype(np.uint8)
-    t = get_hash_tables(n, "video", "cpu")
-    scalars = [torch.tensor(int(x[0])) for x in _filter_batch(bits)]
-    example_args = (torch.from_numpy(bits[0]),
+    t = get_hash_tables(n, "video", dev)
+    scalars = [torch.tensor(int(x[0]), device=dev)
+               for x in _filter_batch(bits)]
+    example_args = (torch.from_numpy(bits[0]).to(dev),
                     *t.h1, *t.h2, *t.act, *scalars)
     return step, example_args
 

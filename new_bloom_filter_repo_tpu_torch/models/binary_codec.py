@@ -30,6 +30,7 @@ from new_bloom_filter_repo_tpu_torch.models.bloom import (
 )
 from new_bloom_filter_repo_tpu_torch.ops import bloom_core
 from new_bloom_filter_repo_tpu_torch.ops.hashtables import get_hash_tables
+from new_bloom_filter_repo_tpu_torch.parallel.mesh import default_device
 
 
 def _filter_scalars(k: float):
@@ -48,15 +49,16 @@ class BloomFilterCompressor:
     ``seed_set`` picks the hash surface: ``"video"`` for the .bfvc frame
     codec, ``"compress"`` for the standalone image/text codec.
     ``device`` holds the hash tables and runs the encode and decode
-    passes (default CPU)."""
+    passes (default: the current CUDA card; without a card, pass
+    ``device="cpu"``, or the constructor raises)."""
 
     P_STAR = P_STAR
 
     def __init__(self, verbose: bool = False, seed_set: str = "video",
-                 device="cpu"):
+                 device=None):
         self.verbose = verbose
         self.seed_set = seed_set
-        self.device = torch.device(device)
+        self.device = default_device(device)
 
     def _calculate_optimal_params(self, n: int, p: float):
         return optimal_compression_params(n, p)

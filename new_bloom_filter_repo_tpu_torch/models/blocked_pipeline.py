@@ -716,7 +716,9 @@ def _deflate_unwinnable(buf: bytes, bits: bool,
 
 class BlockedEncoder:
     """Encodes chunks of frames into typed records via the blocked
-    kernels on ``device`` (CPU tensors run the kernels' plain twins).
+    kernels on ``device`` (default: the current CUDA card, see
+    ``parallel.mesh.default_device``; CPU tensors run the kernels' plain
+    twins).
 
     ``mesh`` (optional ``parallel.mesh.Mesh``) shards phase A over
     frames and the encode kernel over frames and blocks; tensors then
@@ -759,7 +761,7 @@ class BlockedEncoder:
 
     @staticmethod
     def stack_chunk(base: np.ndarray, frames: List[np.ndarray],
-                    device="cpu") -> torch.Tensor:
+                    device) -> torch.Tensor:
         """Host-stack + upload of a chunk.  On a CUDA device the copy
         leaves from pinned memory without blocking, so a caller that
         stacks one chunk ahead overlaps it with the previous chunk."""

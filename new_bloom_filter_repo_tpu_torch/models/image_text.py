@@ -28,11 +28,12 @@ from new_bloom_filter_repo_tpu_torch.models.bloom import (
 
 class BloomCompressor:
     """The standalone codec surface; ``device`` runs the Bloom passes
-    (default CPU)."""
+    (default: the current CUDA card; without a card, pass
+    ``device="cpu"``, or the constructor raises)."""
 
     P_STAR = P_STAR
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device=None):
         self._codec = _DeviceCodec(seed_set="compress", device=device)
 
     # -- core binary codec ---------------------------------------------

@@ -194,8 +194,9 @@ class ImprovedVideoCompressor:
     (module docstring).  ``exact=False`` thresholds the gray/Y change
     against the frame's noise (near-lossless; decode equals the
     encoder's own reconstruction).  ``device`` places every tensor of
-    the pipeline (default CPU); ``devices`` shards the device stages
-    over a mesh (None: one device; ``"auto"``: every card of
+    the pipeline (default: the current CUDA card; without a card, pass
+    ``device="cpu"``, or the constructor raises); ``devices`` shards the
+    device stages over a mesh (None: one device; ``"auto"``: every card of
     ``device``'s type, CUDA by default; an int n: n distinct cards on
     frames; ``(dp, sp)``: dp*sp cards, sp of them on the blocks of a
     frame; or a ``Mesh``), and the compressor's ``device`` is then the

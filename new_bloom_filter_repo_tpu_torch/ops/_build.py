@@ -30,8 +30,12 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _REPO_ROOT = os.path.dirname(os.path.dirname(_PKG_DIR))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "kernels")
+# Most frames one CTA of K1, K2, K5a or K5b walks: it sizes the kernels'
+# shared frame arrays, and ops/blocked.frames_per_cta never asks for more.
+GMAX = 16
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DNBF_GMAX={GMAX}"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -42,12 +46,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # pointers..., ints..., stream
-    "nbf_k1_encode": [_P] * 15 + [_I] * 5 + [_P],
-    "nbf_k2_membership": [_P, _I] + [_P] * 11 + [_I] * 4 + [_P],
+    "nbf_k1_encode": [_P] * 15 + [_I] * 6 + [_P],
+    "nbf_k2_membership": [_P, _I] + [_P] * 11 + [_I] * 5 + [_P],
     "nbf_k3_expand_chain": [_P] * 7 + [_I] * 3 + [_P],
     "nbf_k4_expand": [_P] * 7 + [_I] * 3 + [_P],
-    "nbf_k5a_encode": [_P] * 12 + [_I] * 5 + [_P],
-    "nbf_k5b_membership": [_P, _I] + [_P] * 8 + [_I] * 4 + [_P],
+    "nbf_k5a_encode": [_P] * 12 + [_I] * 6 + [_P],
+    "nbf_k5b_membership": [_P, _I] + [_P] * 8 + [_I] * 5 + [_P],
 }
 
 

@@ -37,11 +37,19 @@ from typing import Dict
 
 import torch
 
+from new_bloom_filter_repo_tpu_torch.ops import _build
+from new_bloom_filter_repo_tpu_torch.ops._build import GMAX
+
 IPB = 1024              # items (pixel indices) per block
 NW = 12                 # u32 sub-filter words per block
 MMAX = NW * 32          # = 384: max per-block filter bits
 WIT_BYTES = IPB // 8    # per-block witness segment (128 B, byte-aligned)
 WW = IPB // 32          # witness u32 words per block (32)
+# K1, K2, K5a and K5b: a CTA walks up to GMAX frames of one block (the
+# build's constant); the wrapper splits the frames into groups so the
+# grid holds at least TARGET_CTAS CTAs (about 8 of 256 threads per SM of
+# an H100's 132).
+TARGET_CTAS = 1024
 
 _U32 = 0xFFFFFFFF
 
@@ -271,7 +279,8 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 def _cuda_args(device, named: Dict[str, tuple]):
     """Check each (tensor, dtype, shape) for the kernel and return the
-    tensors' device pointers, in order."""
+    tensors' device pointers, in order.  Per-item arrays (last axis IPB)
+    must start on a 16-byte boundary: the kernels load them as vectors."""
     ptrs = []
     for name, (t, dtype, shape) in named.items():
         if t.device != device:
@@ -283,15 +292,24 @@ def _cuda_args(device, named: Dict[str, tuple]):
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if shape[-1] == IPB and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
         ptrs.append(t.data_ptr())
     return ptrs
+
+
+def frames_per_cta(f_: int, nb: int) -> int:
+    """Frames one CTA of K1, K2, K5a or K5b walks: all ``f_`` (so the
+    hash tables are read once) unless that leaves fewer than
+    TARGET_CTAS CTAs, and never more than GMAX."""
+    groups = max(-(-f_ // GMAX), min(f_, -(-TARGET_CTAS // nb)))
+    return -(-f_ // groups)
 
 
 def _launch(name: str, args: list, device) -> None:
     """Launch a kernel on ``device``'s current stream, with ``device``
     current: the runtime loads the module into, and launches in, the
     context of the current card, which must be the tensors' own."""
-    from new_bloom_filter_repo_tpu_torch.ops import _build
     lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -357,7 +375,8 @@ def blocked_encode_h(bits, h1, h2, act_hi, act_lo, vals, m, thi, tlo,
     if f_ and nb:
         _launch("nbf_k1_encode",
                 ptrs + [o.data_ptr() for o in outs]
-                + [f_, nb, k_lanes, nw, vh * 32], dev)
+                + [f_, nb, k_lanes, nw, vh * 32, frames_per_cta(f_, nb)],
+                dev)
         blocked_encode_h.launches += 1
     return outs
 
@@ -388,8 +407,8 @@ def blocked_membership_h(words, h1, h2, act_hi, act_lo, m, thi, tlo,
     if f_ and nb:
         _launch("nbf_k2_membership",
                 [ptrs[0], wstride] + ptrs[1:]
-                + [passes.data_ptr(), wcnt.data_ptr(), f_, nb, k_lanes, nw],
-                dev)
+                + [passes.data_ptr(), wcnt.data_ptr(), f_, nb, k_lanes, nw,
+                   frames_per_cta(f_, nb)], dev)
         blocked_membership_h.launches += 1
     return passes, wcnt
 
@@ -436,7 +455,8 @@ def blocked_encode(bits, a, b, act, vals, m, floor_k, *, k_lanes: int,
     if f_ and nb:
         _launch("nbf_k5a_encode",
                 ptrs + [o.data_ptr() for o in outs]
-                + [f_, nb, k_lanes, nw, vh * 32], dev)
+                + [f_, nb, k_lanes, nw, vh * 32, frames_per_cta(f_, nb)],
+                dev)
         blocked_encode.launches += 1
     return outs
 
@@ -469,8 +489,8 @@ def blocked_membership(words, a, b, act, m, floor_k, flags, *,
     if f_ and nb:
         _launch("nbf_k5b_membership",
                 [ptrs[0], wstride] + ptrs[1:]
-                + [passes.data_ptr(), wcnt.data_ptr(), f_, nb, k_lanes, nw],
-                dev)
+                + [passes.data_ptr(), wcnt.data_ptr(), f_, nb, k_lanes, nw,
+                   frames_per_cta(f_, nb)], dev)
         blocked_membership.launches += 1
     return passes, wcnt
 

@@ -11,48 +11,534 @@
 //   K5a nbf_k5a_encode       <- blocked_encode       (_encode_kernel)
 //   K5b nbf_k5b_membership   <- blocked_membership   (_member_kernel)
 //
-// K5a and K5b are K1 and K2 fed with materialized per-frame tables
-// a = h1 mod m, b = h2 mod m and act (uint8), which the caller built
-// (models/blocked_pipeline._frame_mod_tables): the bodies are shared,
-// only the per-item (a, b, lanes) come from global memory instead of
-// the hash prelude.  K5a reads ~14 B per item (bits, a, b, act, vals)
-// against K1's ~5 B plus the (NB, 1024) tables, so it moves more bytes
-// than K1 for the same output.
-//
 // The work is integer bit manipulation over 1024-item blocks: each item
-// is read and written once, so every kernel is bound by device-memory
-// bytes, not by arithmetic.  The design keeps one block (1024 items) per
-// CTA, one item per thread, and everything a block needs between its
-// passes (the <= 12 sub-filter words, the 32 witness words, warp counts)
-// in shared memory, so no intermediate touches device memory.
+// is read and written once, so the least time the card could take is
+// set by device-memory bytes.  The kernels keep everything a block needs
+// between its passes (the <= 12 sub-filter words, the 32 witness words,
+// warp counts, compacted values) in shared memory, so no intermediate
+// touches device memory; what holds them back is instruction issue and
+// latency (K1 most of all its per-item work on changed items), not
+// bytes (PERF.md).
+//
+// K1/K2 and K5a/K5b (encode_frames, membership_frames).  One CTA of 256
+// threads owns one block and a group of up to GMAX frames, and walks
+// them in a loop; each thread owns IPT = 4 consecutive items.  What
+// this buys against one item per thread and one CTA per (block, frame):
+//
+// * the hash tables (h1, h2 and the activation halves, 16 B an item)
+//   are read once per launch, not once per frame: a 1080p chunk of 15
+//   frames walks all its frames in one CTA per block (the wrapper picks
+//   the group so the grid still holds about 8 CTAs per SM at small NB);
+// * the per-frame scalars (m, a reciprocal of m, the threshold, floor
+//   k) are staged once in shared memory, and K2 stages all the sub-
+//   filter words of its frames up front (GMAX x 12 words);
+// * loads and stores are vectors: uchar4 bits and passes, int4 tables,
+//   values and value segments, one u32 per witness word; K1 loads the
+//   next frame's bits a frame ahead;
+// * `h mod m` is a multiply-high by the frame's reciprocal and one
+//   conditional subtract (mod_rcp), in place of a 32-bit `%` per item;
+// * ranks come from the thread's own counts, one warp scan (the pass
+//   and change counts packed in one int) and a warp reduction of the 8
+//   warp totals: K1 passes 2 barriers per (block, frame), K2 none.
+//
+// K5a/K5b are the same bodies fed with materialized per-frame tables
+// a = h1 mod m, b = h2 mod m and act (uint8), which the caller built
+// (models/blocked_pipeline._frame_mod_tables): only the per-item
+// (a, b, act) come from global memory, per frame, instead of the hash
+// prelude.  They read ~9 B per item per frame more than K1/K2.
+//
+// K3/K4 keep one block (1024 items) per CTA, one item per thread
+// (expand_item); K3 loops over the frames of its block column.
 //
 // What the TPU kernels needed and these do not: Mosaic had no scatter
 // and no integer divide, so the Pallas code routed compaction through a
 // butterfly network, folded packed words with static rolls and took
-// `h mod m` through an f32 reciprocal.  Here the ranks come from
-// __ballot_sync + __popc and a scan over the 32 warp totals, compaction
-// is a direct scatter to the item's rank, and `%` is the integer one.
+// `h mod m` through an f32 reciprocal.  Here the ranks come from warp
+// scans (or __ballot_sync + __popc), compaction is a direct scatter to
+// the item's rank, and `h mod m` an integer multiply-high.
 //
 // Bit conventions (the stream's): sub-filter bit p is bit 31 - (p & 31)
 // of u32 word p >> 5 (np.packbits order per word); witness bit r is bit
 // 7 - (r & 7) of byte r >> 3, i.e. MSB-first, which equals big-endian
-// u32 words.  The u64 activation test is a real 64-bit compare of
-// (act_hi << 32 | act_lo) against (thi << 32 | tlo).
+// u32 words.  The u64 activation test is an unsigned compare of
+// (act_hi, act_lo) against (thi, tlo), high halves first.
 //
 // Every entry point is a plain C function: it launches on the stream it
 // is given, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
+// The per-item arrays must be 16-byte aligned (the wrapper checks).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int IPB = 1024;         // items per block = threads per CTA
+constexpr int IPB = 1024;         // items per block
 constexpr int NW = 12;            // max u32 sub-filter words per block
 constexpr int WW = IPB / 32;      // witness u32 words per block
 constexpr int WIT_BYTES = IPB / 8;
 constexpr unsigned FULL = 0xffffffffu;
+
+constexpr int IPT = 4;                // items per thread (K1, K2, K5a, K5b)
+constexpr int THREADS = IPB / IPT;    // threads per CTA (K1, K2, K5a, K5b)
+constexpr int WARPS = THREADS / 32;
+// Most frames one CTA walks; defined once, by ops/_build.py, which also
+// gives it to the wrappers that choose the frame groups.
+#ifndef NBF_GMAX
+#error "build with -DNBF_GMAX=<frames> (ops/_build.py)"
+#endif
+constexpr int GMAX = NBF_GMAX;
+// CTAs an SM must hold: caps registers at 64 a thread, without spills.
+// K1 is bound by latency, not by its bytes, and runs faster with this
+// occupancy than with the registers ptxas gives it uncapped (2 CTAs an
+// SM).
+constexpr int MIN_CTAS = 4;
+
+// ---------------------------------------------------------------------------
+// K1, K2, K5a, K5b
+// ---------------------------------------------------------------------------
+
+// h mod m for any u32 h and m >= 1, given rcp = floor((2^32 - 1) / m).
+// Exact with one correction: rcp * m = 2^32 - 1 - e with 0 <= e < m, so
+// h * rcp / 2^32 = h/m - d with d = h (1 + e) / (m 2^32) <= h / 2^32 < 1;
+// the quotient umulhi(h, rcp) is floor(h/m) or one less, and h - q m
+// lies in [0, 2m).  (The tables hold h < 2^24 and the stream m = 1 or
+// 16..384, well inside; tests/test_torch_kernels.py checks the recipe
+// against `%` over every h < 2^24.)
+__device__ __forceinline__ uint32_t mod_rcp(uint32_t h, uint32_t m,
+                                            uint32_t rcp) {
+    const uint32_t r = h - __umulhi(h, rcp) * m;
+    return r >= m ? r - m : r;
+}
+
+// Per-frame scalars, staged in shared memory by the CTA.  Lane j of an
+// item (0 <= j < nl) is active when j < det, or when the item's
+// activation test fired (then j == det: the fractional lane).
+struct Frame {
+    uint32_t m, rcp, thi, tlo;
+    int det, nl, flag;
+};
+
+struct FrameArgs {
+    const int32_t* m;
+    const int32_t* thi;      // null for K5a/K5b
+    const int32_t* tlo;
+    const int32_t* fk;
+    const int32_t* flags;    // null for K1/K5a
+};
+
+__device__ __forceinline__ Frame stage_frame(const FrameArgs& fa, int f,
+                                             int k_lanes) {
+    Frame fr;
+    fr.m = (uint32_t)fa.m[f];
+    fr.rcp = fr.m ? 0xffffffffu / fr.m : 0u;   // once per frame and CTA
+    fr.thi = fa.thi ? (uint32_t)fa.thi[f] : 0u;
+    fr.tlo = fa.tlo ? (uint32_t)fa.tlo[f] : 0u;
+    const int fk = fa.fk[f];
+    fr.det = min(max(fk, 0), k_lanes + 1);
+    fr.nl = fr.det + ((fk >= 0 && fk <= k_lanes) ? 1 : 0);
+    fr.flag = fa.flags ? (fa.flags[f] != 0) : 0;
+    return fr;
+}
+
+__device__ __forceinline__ void load4(const int32_t* __restrict__ p,
+                                      size_t quad, uint32_t out[IPT]) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + quad);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+
+// K1/K2's items: the thread's four items' hash tables, read once per
+// launch and kept in registers; per frame, a = h1 mod m, b = h2 mod m
+// and the activation test against the frame's threshold.
+struct HashItems {
+    uint32_t h1[IPT], h2[IPT], hi[IPT], lo[IPT];
+
+    __device__ HashItems(const int32_t* __restrict__ t1,
+                         const int32_t* __restrict__ t2,
+                         const int32_t* __restrict__ thi,
+                         const int32_t* __restrict__ tlo, size_t quad) {
+        load4(t1, quad, h1);
+        load4(t2, quad, h2);
+        load4(thi, quad, hi);
+        load4(tlo, quad, lo);
+    }
+
+    __device__ __forceinline__ void frame(const Frame& fr, size_t,
+                                          uint32_t a[IPT], uint32_t b[IPT],
+                                          bool act[IPT]) const {
+#pragma unroll
+        for (int i = 0; i < IPT; ++i) {
+            a[i] = mod_rcp(h1[i], fr.m, fr.rcp);
+            b[i] = mod_rcp(h2[i], fr.m, fr.rcp);
+            act[i] = hi[i] < fr.thi || (hi[i] == fr.thi && lo[i] < fr.tlo);
+        }
+    }
+};
+
+// K5a/K5b's items: (a, b, act) of each frame, read from the
+// materialized (F, NB, 1024) tables.
+struct ModItems {
+    const int32_t* a;
+    const int32_t* b;
+    const uint8_t* act;
+
+    __device__ __forceinline__ void frame(const Frame&, size_t quad,
+                                          uint32_t a_[IPT], uint32_t b_[IPT],
+                                          bool act_[IPT]) const {
+        load4(a, quad, a_);
+        load4(b, quad, b_);
+        const uchar4 v = reinterpret_cast<const uchar4*>(act)[quad];
+        act_[0] = v.x != 0; act_[1] = v.y != 0;
+        act_[2] = v.z != 0; act_[3] = v.w != 0;
+    }
+};
+
+// Word of sub-filter bit `pos`, or 0 past `cap` where CHECKED.  Rows
+// hold NW words, zero past the filter's nw, so a frame with m <= 32 NW
+// (every frame of a stream) needs no check: its positions stay in the
+// row and those at or past cap read zero words.
+template <bool CHECKED>
+__device__ __forceinline__ uint32_t word_at(const uint32_t* filt,
+                                            uint32_t pos, uint32_t cap) {
+    return (!CHECKED || pos < cap) ? filt[pos >> 5] : 0u;
+}
+
+__device__ __forceinline__ uint32_t step(uint32_t pos, uint32_t b,
+                                         uint32_t m) {
+    pos += b;
+    return pos >= m ? pos - m : pos;
+}
+
+// Membership of the thread's four items in the sub-filter `filt`
+// (shared words): every deterministic lane's bit, and the fractional
+// lane's where the item's activation test fired.  Bit pos of a word is
+// its top bit after a left shift by pos & 31 (the funnel shift's wrap).
+// a, b < m.
+template <bool CHECKED>
+__device__ __forceinline__ void member4(const uint32_t* filt,
+                                        const uint32_t a[IPT],
+                                        const uint32_t b[IPT],
+                                        const bool act[IPT], const Frame& fr,
+                                        uint32_t cap, bool pass[IPT]) {
+    uint32_t pos[IPT], acc[IPT];
+#pragma unroll
+    for (int i = 0; i < IPT; ++i) {
+        pos[i] = a[i];
+        acc[i] = FULL;
+    }
+    for (int j = 0; j < fr.det; ++j) {
+#pragma unroll
+        for (int i = 0; i < IPT; ++i) {
+            acc[i] &= __funnelshift_l(
+                0u, word_at<CHECKED>(filt, pos[i], cap), pos[i]);
+            pos[i] = step(pos[i], b[i], fr.m);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < IPT; ++i) {
+        if (fr.nl > fr.det && act[i]) {
+            acc[i] &= __funnelshift_l(
+                0u, word_at<CHECKED>(filt, pos[i], cap), pos[i]);
+        }
+        pass[i] = (int32_t)acc[i] < 0;
+    }
+}
+
+__device__ __forceinline__ void member4(const uint32_t* filt,
+                                        const uint32_t a[IPT],
+                                        const uint32_t b[IPT],
+                                        const bool act[IPT], const Frame& fr,
+                                        uint32_t cap, bool pass[IPT]) {
+    if (fr.m <= 32u * NW) {
+        member4<false>(filt, a, b, act, fr, cap, pass);
+    } else {
+        member4<true>(filt, a, b, act, fr, cap, pass);
+    }
+}
+
+struct EncodeOut {
+    int32_t* words;
+    uint8_t* wit;
+    int32_t* wcnt;
+    int32_t* vseg;
+    int32_t* vcnt;
+};
+
+// Witness segment, value segment and counts of one encoded (block,
+// frame) from the CTA's shared buffers: big-endian witness words, the
+// compacted values with zeros past vcnt.
+__device__ __forceinline__ void write_frame(const EncodeOut& out,
+                                            size_t row, const uint32_t* witw,
+                                            const int32_t* vbuf, int npass,
+                                            int nchg, int vslots) {
+    const int t = threadIdx.x;
+    if (t < WW) {
+        reinterpret_cast<uint32_t*>(out.wit + row * WIT_BYTES)[t] =
+            __byte_perm(witw[t], 0u, 0x0123);
+    }
+    for (int i = IPT * t; i < vslots; i += IPB) {
+        const int4 q = *reinterpret_cast<const int4*>(vbuf + i);
+        const int4 o = make_int4(i < nchg ? q.x : 0, i + 1 < nchg ? q.y : 0,
+                                 i + 2 < nchg ? q.z : 0,
+                                 i + 3 < nchg ? q.w : 0);
+        reinterpret_cast<int4*>(out.vseg + row * vslots)[i / IPT] = o;
+    }
+    if (t == 0) {
+        out.wcnt[row] = npass;
+        out.vcnt[row] = nchg;
+    }
+}
+
+// Bloom encode of one block over the CTA's frames (K1, K5a): per frame,
+// OR-insert of the changed items into the shared sub-filter, membership
+// of every item, witness bits of the passing items at their rank,
+// values of the changed items compacted to their rank, the two counts.
+// Two barriers a frame: the filter is complete (which also completes
+// the previous frame's witness and values, written out right after it
+// from the other half of the double buffers); the warp totals are in.
+// The sub-filter is double-buffered too: frame g inserts into and reads
+// filt[g & 1], and clears filt[(g + 1) & 1] between its two barriers,
+// after frame g - 1's last read of it (before g - 1's second barrier)
+// and before frame g + 1's first insert (after g's second barrier).
+// The frame loop is unrolled by two so that the buffer parity P is a
+// constant and every shared address static.  The next frame's change
+// bits are loaded a frame ahead.
+struct EncodeSmem {
+    int32_t vbuf[2][IPB];        // first, so 16-byte aligned
+    uint32_t witw[2][WW];
+    uint32_t filt[2][NW];
+    Frame frs[GMAX];
+    int wtot[WARPS];
+};
+
+// What a thread carries from one frame to the next.
+struct EncodeCarry {
+    size_t quad;                 // its first item's quad in this frame
+    uchar4 c4;                   // this frame's change bits
+    int npass, nchg;             // the previous frame's counts
+};
+
+template <int P, class Items>
+__device__ __forceinline__ void encode_frame(
+        EncodeSmem& sh, EncodeCarry& c, const Items& items,
+        const uint8_t* __restrict__ bits, const int32_t* __restrict__ vals,
+        const EncodeOut& out, int g, int nfr, size_t row, size_t stride,
+        int nb, uint32_t cap, int nw, int vslots) {
+    const int t = threadIdx.x;
+    const int lane = t & 31;
+    const int warp = t >> 5;
+    const Frame fr = sh.frs[g];
+    const uchar4 c4 = c.c4;
+    const bool chg[IPT] = {c4.x != 0, c4.y != 0, c4.z != 0, c4.w != 0};
+    const int nc = chg[0] + chg[1] + chg[2] + chg[3];
+    int4 v4 = make_int4(0, 0, 0, 0);
+    if (nc) v4 = __ldg(reinterpret_cast<const int4*>(vals) + c.quad);
+    if (g + 1 < nfr)
+        c.c4 = reinterpret_cast<const uchar4*>(bits)[c.quad + stride];
+    uint32_t a[IPT], b[IPT];
+    bool act[IPT];
+    items.frame(fr, c.quad, a, b, act);
+    if (nc) {                                           // OR-insert
+#pragma unroll
+        for (int i = 0; i < IPT; ++i) {
+            if (!chg[i]) continue;
+            uint32_t pos = a[i];
+            for (int j = 0; j < fr.nl; ++j) {
+                if ((j < fr.det || act[i]) && pos < cap) {
+                    atomicOr(&sh.filt[P][pos >> 5],
+                             0x80000000u >> (pos & 31u));
+                }
+                pos = step(pos, b[i], fr.m);
+            }
+        }
+    }
+    __syncthreads();                // filt; the previous frame's buffers
+
+    if (g > 0) {
+        write_frame(out, row - nb, sh.witw[P ^ 1], sh.vbuf[P ^ 1], c.npass,
+                    c.nchg, vslots);
+    }
+    if (t < WW) sh.witw[P][t] = 0u;
+    if (t < NW) sh.filt[P ^ 1][t] = 0u;                 // the next frame's
+    if (t < nw) out.words[row * nw + t] = (int32_t)sh.filt[P][t];
+    bool pass[IPT];
+    member4(sh.filt[P], a, b, act, fr, cap, pass);
+    const int np = pass[0] + pass[1] + pass[2] + pass[3];
+    // Ranks in item order: pass counts in the low 16 bits, change counts
+    // in the high 16 (each at most 1024, so no carry).
+    const int own = np | (nc << 16);
+    int incl = own;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int n = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += n;
+    }
+    if (lane == 31) sh.wtot[warp] = incl;
+    __syncthreads();                                    // warp totals
+
+    const int wv = lane < WARPS ? sh.wtot[lane] : 0;
+    const int total = __reduce_add_sync(FULL, wv);
+    const int before = __reduce_add_sync(FULL, lane < warp ? wv : 0);
+    c.npass = total & 0xffff;
+    c.nchg = total >> 16;
+    if (nc) {           // witness bits and values of the changed items
+        const int excl = before + incl - own;
+        int r = excl & 0xffff;
+        int s = excl >> 16;
+        const int32_t vv[IPT] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+        for (int i = 0; i < IPT; ++i) {
+            if (pass[i]) {
+                if (chg[i])
+                    atomicOr(&sh.witw[P][r >> 5], 0x80000000u >> (r & 31));
+                ++r;
+            }
+            if (chg[i]) {
+                if (s < vslots) sh.vbuf[P][s] = vv[i];
+                ++s;
+            }
+        }
+    }
+    c.quad += stride;
+}
+
+template <class Items>
+__device__ __forceinline__ void encode_frames(
+        const Items& items, const uint8_t* __restrict__ bits,
+        const int32_t* __restrict__ vals, const FrameArgs& fa,
+        const EncodeOut& out, int nf, int nb, int k_lanes, int nw,
+        int vslots, int fpc) {
+    __shared__ __align__(16) EncodeSmem sh;
+    const int t = threadIdx.x;
+    const int blk = blockIdx.x;
+    const int f0 = blockIdx.y * fpc;
+    const int nfr = min(fpc, nf - f0);
+    const uint32_t cap = 32u * (uint32_t)nw;
+    const size_t stride = (size_t)nb * THREADS;     // quads per frame
+    if (t < nfr) sh.frs[t] = stage_frame(fa, f0 + t, k_lanes);
+    if (t < NW) sh.filt[0][t] = 0u;
+    EncodeCarry c;
+    c.quad = ((size_t)f0 * nb + blk) * THREADS + t;
+    c.c4 = reinterpret_cast<const uchar4*>(bits)[c.quad];
+    c.npass = c.nchg = 0;
+    __syncthreads();
+
+    for (int g = 0; g < nfr; g += 2) {
+        encode_frame<0>(sh, c, items, bits, vals, out, g, nfr,
+                        (size_t)(f0 + g) * nb + blk, stride, nb, cap, nw,
+                        vslots);
+        if (g + 1 < nfr) {
+            encode_frame<1>(sh, c, items, bits, vals, out, g + 1, nfr,
+                            (size_t)(f0 + g + 1) * nb + blk, stride, nb, cap,
+                            nw, vslots);
+        }
+    }
+    __syncthreads();
+    const int p = (nfr - 1) & 1;
+    write_frame(out, (size_t)(f0 + nfr - 1) * nb + blk, sh.witw[p],
+                sh.vbuf[p], c.npass, c.nchg, vslots);
+}
+
+// Decode pass mask of one block over the CTA's frames (K2, K5b), with
+// the per-block pass count summed by warp reductions into shared
+// counters; flagged frames pass nothing.  No barrier inside the loop.
+template <class Items>
+__device__ __forceinline__ void membership_frames(
+        const Items& items, const int32_t* __restrict__ words, int wstride,
+        const FrameArgs& fa, uint8_t* __restrict__ passes,
+        int32_t* __restrict__ wcnt, int nf, int nb, int k_lanes, int nw,
+        int fpc) {
+    __shared__ Frame frs[GMAX];
+    __shared__ uint32_t filt[GMAX][NW];
+    __shared__ int cnt[GMAX];
+    const int t = threadIdx.x;
+    const int blk = blockIdx.x;
+    const int f0 = blockIdx.y * fpc;
+    const int nfr = min(fpc, nf - f0);
+    const uint32_t cap = 32u * (uint32_t)nw;
+    if (t < nfr) {
+        frs[t] = stage_frame(fa, f0 + t, k_lanes);
+        cnt[t] = 0;
+    }
+    for (int i = t; i < nfr * NW; i += THREADS) {
+        const int g = i / NW;
+        const int w = i - g * NW;
+        filt[g][w] = w < nw
+            ? (uint32_t)words[((size_t)(f0 + g) * nb + blk) * wstride + w]
+            : 0u;
+    }
+    __syncthreads();
+
+    for (int g = 0; g < nfr; ++g) {
+        const Frame fr = frs[g];
+        const size_t quad = ((size_t)(f0 + g) * nb + blk) * THREADS + t;
+        uchar4 o = make_uchar4(0, 0, 0, 0);
+        int np = 0;
+        if (!fr.flag) {
+            uint32_t a[IPT], b[IPT];
+            bool act[IPT], pass[IPT];
+            items.frame(fr, quad, a, b, act);
+            member4(filt[g], a, b, act, fr, cap, pass);
+            o = make_uchar4(pass[0], pass[1], pass[2], pass[3]);
+            np = pass[0] + pass[1] + pass[2] + pass[3];
+        }
+        reinterpret_cast<uchar4*>(passes)[quad] = o;
+        np = __reduce_add_sync(FULL, np);
+        if ((t & 31) == 0 && np) atomicAdd(&cnt[g], np);
+    }
+    __syncthreads();
+    if (t < nfr) wcnt[(size_t)(f0 + t) * nb + blk] = cnt[t];
+}
+
+// K1: grid = (NB, frame groups of fpc), block = THREADS.
+__global__ void __launch_bounds__(THREADS, MIN_CTAS) k1_encode(
+        const uint8_t* __restrict__ bits, const int32_t* __restrict__ h1,
+        const int32_t* __restrict__ h2, const int32_t* __restrict__ act_hi,
+        const int32_t* __restrict__ act_lo, const int32_t* __restrict__ vals,
+        FrameArgs fa, EncodeOut out, int nf, int nb, int k_lanes, int nw,
+        int vslots, int fpc) {
+    const HashItems items(h1, h2, act_hi, act_lo,
+                          (size_t)blockIdx.x * THREADS + threadIdx.x);
+    encode_frames(items, bits, vals, fa, out, nf, nb, k_lanes, nw, vslots,
+                  fpc);
+}
+
+// K5a: K1 on materialized (F, NB, 1024) a, b and act.
+__global__ void __launch_bounds__(THREADS, MIN_CTAS) k5a_encode(
+        const uint8_t* __restrict__ bits, ModItems items,
+        const int32_t* __restrict__ vals, FrameArgs fa, EncodeOut out,
+        int nf, int nb, int k_lanes, int nw, int vslots, int fpc) {
+    encode_frames(items, bits, vals, fa, out, nf, nb, k_lanes, nw, vslots,
+                  fpc);
+}
+
+// K2: grid = (NB, frame groups of fpc), block = THREADS.
+__global__ void __launch_bounds__(THREADS, MIN_CTAS) k2_membership(
+        const int32_t* __restrict__ words, int wstride,
+        const int32_t* __restrict__ h1, const int32_t* __restrict__ h2,
+        const int32_t* __restrict__ act_hi,
+        const int32_t* __restrict__ act_lo, FrameArgs fa,
+        uint8_t* __restrict__ passes, int32_t* __restrict__ wcnt, int nf,
+        int nb, int k_lanes, int nw, int fpc) {
+    const HashItems items(h1, h2, act_hi, act_lo,
+                          (size_t)blockIdx.x * THREADS + threadIdx.x);
+    membership_frames(items, words, wstride, fa, passes, wcnt, nf, nb,
+                      k_lanes, nw, fpc);
+}
+
+// K5b: K2 on materialized (F, NB, 1024) a, b and act.
+__global__ void __launch_bounds__(THREADS, MIN_CTAS) k5b_membership(
+        const int32_t* __restrict__ words, int wstride, ModItems items,
+        FrameArgs fa, uint8_t* __restrict__ passes,
+        int32_t* __restrict__ wcnt, int nf, int nb, int k_lanes, int nw,
+        int fpc) {
+    membership_frames(items, words, wstride, fa, passes, wcnt, nf, nb,
+                      k_lanes, nw, fpc);
+}
+
+// ---------------------------------------------------------------------------
+// K3, K4
+// ---------------------------------------------------------------------------
 
 // Exclusive rank of this thread among the threads of the CTA whose
 // `pred` is true, in thread order; `*total` receives the count.  Needs
@@ -81,216 +567,6 @@ __device__ __forceinline__ int block_rank(bool pred, int* warp_buf,
     *total = *total_buf;
     __syncthreads();
     return rank;
-}
-
-// Active lanes of one item: lane j (0 <= j <= k_lanes) is active when
-// j < fk, or when j == fk and the item's activation test fired.  Active
-// lanes are always a prefix 0..lanes-1.
-__device__ __forceinline__ int lanes_of(bool act, int fk, int k_lanes) {
-    int det = fk < k_lanes + 1 ? fk : k_lanes + 1;
-    if (det < 0) det = 0;
-    return det + ((act && fk >= 0 && fk <= k_lanes) ? 1 : 0);
-}
-
-// Per-item hash prelude of K1 and K2: a = h1 mod m, b = h2 mod m and
-// the number of active lanes, the activation test being the u64 hash
-// below the frame's threshold.
-__device__ __forceinline__ void prelude(
-        const int32_t* __restrict__ h1, const int32_t* __restrict__ h2,
-        const int32_t* __restrict__ act_hi, const int32_t* __restrict__ act_lo,
-        size_t tab, int m, uint32_t thi, uint32_t tlo, int fk, int k_lanes,
-        uint32_t* a, uint32_t* b, int* lanes) {
-    const uint32_t um = (uint32_t)m;
-    *a = (uint32_t)h1[tab] % um;
-    *b = (uint32_t)h2[tab] % um;
-    const uint64_t hv = ((uint64_t)(uint32_t)act_hi[tab] << 32)
-                        | (uint32_t)act_lo[tab];
-    const uint64_t tv = ((uint64_t)thi << 32) | tlo;
-    *lanes = lanes_of(hv < tv, fk, k_lanes);
-}
-
-// Membership of one item in its block's sub-filter (shared words).
-__device__ __forceinline__ bool member(const uint32_t* filt, uint32_t a,
-                                       uint32_t b, uint32_t m, int lanes,
-                                       uint32_t cap) {
-    bool pass = true;
-    uint32_t pos = a;
-    for (int j = 0; j < lanes; ++j) {
-        const uint32_t w = pos < cap ? filt[pos >> 5] : 0u;
-        pass = pass && ((w >> (31u - (pos & 31u))) & 1u);
-        pos += b;
-        if (pos >= m) pos -= m;
-    }
-    return pass;
-}
-
-// Bloom encode of one (block, frame) by its CTA, given every item's
-// (a, b, lanes): OR-insert into the shared sub-filter, membership of
-// every item, witness bits of the passing items at their rank, values
-// of the changed items compacted to their rank, and the two counts.
-// Shared by K1 and K5a; `filt`, `witw`, `warp_buf` and `total_buf` are
-// the caller's shared memory.
-__device__ __forceinline__ void encode_body(
-        uint32_t a, uint32_t b, int lanes, int m, bool changed,
-        const int32_t* __restrict__ vals, size_t row, int nw, int vslots,
-        int32_t* __restrict__ words, uint8_t* __restrict__ wit,
-        int32_t* __restrict__ wcnt, int32_t* __restrict__ vseg,
-        int32_t* __restrict__ vcnt, uint32_t* filt, uint32_t* witw,
-        int* warp_buf, int* total_buf) {
-    const int t = threadIdx.x;
-    const size_t item = row * IPB + t;
-    if (t < NW) filt[t] = 0u;
-    if (t < WW) witw[t] = 0u;
-    const uint32_t cap = 32u * (uint32_t)nw;
-    __syncthreads();                                  // filt, witw zeroed
-
-    if (changed) {                                    // OR-insert
-        uint32_t pos = a;
-        for (int j = 0; j < lanes; ++j) {
-            if (pos < cap) atomicOr(&filt[pos >> 5], 1u << (31u - (pos & 31u)));
-            pos += b;
-            if (pos >= (uint32_t)m) pos -= (uint32_t)m;
-        }
-    }
-    __syncthreads();
-
-    const bool pass = member(filt, a, b, (uint32_t)m, lanes, cap);
-    if (t < nw) words[row * nw + t] = (int32_t)filt[t];
-
-    int npass, nchg;
-    const int r = block_rank(pass, warp_buf, total_buf, &npass);
-    if (pass && changed) atomicOr(&witw[r >> 5], 1u << (31 - (r & 31)));
-    const int slot = block_rank(changed, warp_buf, total_buf, &nchg);
-    int32_t* vrow = vseg + row * vslots;
-    if (changed && slot < vslots) vrow[slot] = vals[item];
-    if (t >= nchg && t < vslots) vrow[t] = 0;       // tail beyond vcnt
-    __syncthreads();                                  // witw complete
-    if (t < WIT_BYTES) {
-        wit[row * WIT_BYTES + t] =
-            (uint8_t)(witw[t >> 2] >> (24 - 8 * (t & 3)));
-    }
-    if (t == 0) {
-        wcnt[row] = npass;
-        vcnt[row] = nchg;
-    }
-}
-
-// K1: per (block, frame) Bloom encode with the hash prelude.
-// grid = (NB, F), block = 1024.
-__global__ void __launch_bounds__(IPB) k1_encode(
-        const uint8_t* __restrict__ bits, const int32_t* __restrict__ h1,
-        const int32_t* __restrict__ h2, const int32_t* __restrict__ act_hi,
-        const int32_t* __restrict__ act_lo, const int32_t* __restrict__ vals,
-        const int32_t* __restrict__ m_arr, const int32_t* __restrict__ thi,
-        const int32_t* __restrict__ tlo, const int32_t* __restrict__ fk_arr,
-        int32_t* __restrict__ words, uint8_t* __restrict__ wit,
-        int32_t* __restrict__ wcnt, int32_t* __restrict__ vseg,
-        int32_t* __restrict__ vcnt, int nb, int k_lanes, int nw,
-        int vslots) {
-    __shared__ uint32_t filt[NW];
-    __shared__ uint32_t witw[WW];
-    __shared__ int warp_buf[32];
-    __shared__ int total_buf;
-    const int blk = blockIdx.x;
-    const int f = blockIdx.y;
-    const size_t row = (size_t)f * nb + blk;
-    const size_t tab = (size_t)blk * IPB + threadIdx.x;
-    const int m = m_arr[f];
-    uint32_t a, b;
-    int lanes;
-    prelude(h1, h2, act_hi, act_lo, tab, m, (uint32_t)thi[f],
-            (uint32_t)tlo[f], fk_arr[f], k_lanes, &a, &b, &lanes);
-    encode_body(a, b, lanes, m, bits[row * IPB + threadIdx.x] != 0, vals,
-                row, nw, vslots, words, wit, wcnt, vseg, vcnt, filt, witw,
-                warp_buf, &total_buf);
-}
-
-// K5a: K1 on materialized (F, NB, 1024) a, b and act.
-// grid = (NB, F), block = 1024.
-__global__ void __launch_bounds__(IPB) k5a_encode(
-        const uint8_t* __restrict__ bits, const int32_t* __restrict__ a_arr,
-        const int32_t* __restrict__ b_arr, const uint8_t* __restrict__ act,
-        const int32_t* __restrict__ vals, const int32_t* __restrict__ m_arr,
-        const int32_t* __restrict__ fk_arr, int32_t* __restrict__ words,
-        uint8_t* __restrict__ wit, int32_t* __restrict__ wcnt,
-        int32_t* __restrict__ vseg, int32_t* __restrict__ vcnt, int nb,
-        int k_lanes, int nw, int vslots) {
-    __shared__ uint32_t filt[NW];
-    __shared__ uint32_t witw[WW];
-    __shared__ int warp_buf[32];
-    __shared__ int total_buf;
-    const int f = blockIdx.y;
-    const size_t row = (size_t)f * nb + blockIdx.x;
-    const size_t item = row * IPB + threadIdx.x;
-    const int lanes = lanes_of(act[item] != 0, fk_arr[f], k_lanes);
-    encode_body((uint32_t)a_arr[item], (uint32_t)b_arr[item], lanes,
-                m_arr[f], bits[item] != 0, vals, row, nw, vslots, words,
-                wit, wcnt, vseg, vcnt, filt, witw, warp_buf, &total_buf);
-}
-
-// Decode pass mask of one (block, frame) by its CTA, given every item's
-// (a, b, lanes), with the per-block pass count fused in.  Shared by K2
-// and K5b; `filt` is the caller's shared memory, already loaded with
-// the block's words (the caller syncs).
-__device__ __forceinline__ void membership_body(
-        uint32_t a, uint32_t b, int lanes, int m, bool flagged, size_t row,
-        int nw, const uint32_t* filt, uint8_t* __restrict__ passes,
-        int32_t* __restrict__ wcnt) {
-    const bool pass = !flagged
-        && member(filt, a, b, (uint32_t)m, lanes, 32u * (uint32_t)nw);
-    passes[row * IPB + threadIdx.x] = pass ? 1 : 0;
-    const int cnt = __syncthreads_count(pass);
-    if (threadIdx.x == 0) wcnt[row] = cnt;
-}
-
-// K2: per (block, frame) decode pass mask with the hash prelude.
-// grid = (NB, F), block = 1024.
-__global__ void __launch_bounds__(IPB) k2_membership(
-        const int32_t* __restrict__ words, int wstride,
-        const int32_t* __restrict__ h1, const int32_t* __restrict__ h2,
-        const int32_t* __restrict__ act_hi, const int32_t* __restrict__ act_lo,
-        const int32_t* __restrict__ m_arr, const int32_t* __restrict__ thi,
-        const int32_t* __restrict__ tlo, const int32_t* __restrict__ fk_arr,
-        const int32_t* __restrict__ flags, uint8_t* __restrict__ passes,
-        int32_t* __restrict__ wcnt, int nb, int k_lanes, int nw) {
-    __shared__ uint32_t filt[NW];
-    const int t = threadIdx.x;
-    const int blk = blockIdx.x;
-    const int f = blockIdx.y;
-    const size_t row = (size_t)f * nb + blk;
-    const size_t tab = (size_t)blk * IPB + t;
-    if (t < nw) filt[t] = (uint32_t)words[row * wstride + t];
-    const int m = m_arr[f];
-    uint32_t a, b;
-    int lanes;
-    prelude(h1, h2, act_hi, act_lo, tab, m, (uint32_t)thi[f],
-            (uint32_t)tlo[f], fk_arr[f], k_lanes, &a, &b, &lanes);
-    __syncthreads();
-    membership_body(a, b, lanes, m, flags[f] != 0, row, nw, filt, passes,
-                    wcnt);
-}
-
-// K5b: K2 on materialized (F, NB, 1024) a, b and act.
-// grid = (NB, F), block = 1024.
-__global__ void __launch_bounds__(IPB) k5b_membership(
-        const int32_t* __restrict__ words, int wstride,
-        const int32_t* __restrict__ a_arr, const int32_t* __restrict__ b_arr,
-        const uint8_t* __restrict__ act, const int32_t* __restrict__ m_arr,
-        const int32_t* __restrict__ fk_arr, const int32_t* __restrict__ flags,
-        uint8_t* __restrict__ passes, int32_t* __restrict__ wcnt, int nb,
-        int k_lanes, int nw) {
-    __shared__ uint32_t filt[NW];
-    const int t = threadIdx.x;
-    const int f = blockIdx.y;
-    const size_t row = (size_t)f * nb + blockIdx.x;
-    const size_t item = row * IPB + t;
-    if (t < nw) filt[t] = (uint32_t)words[row * wstride + t];
-    const int lanes = lanes_of(act[item] != 0, fk_arr[f], k_lanes);
-    const uint32_t a = (uint32_t)a_arr[item];
-    const uint32_t b = (uint32_t)b_arr[item];
-    __syncthreads();
-    membership_body(a, b, lanes, m_arr[f], flags[f] != 0, row, nw, filt,
-                    passes, wcnt);
 }
 
 // Change mask and value of one item of one frame (K3 and K4): a passing
@@ -361,6 +637,13 @@ __global__ void __launch_bounds__(IPB) k4_expand(
     vals_out[item] = val;
 }
 
+// Grid of K1, K2, K5a and K5b: NB blocks by the frame groups of fpc.
+bool frame_grid(int nf, int nb, int fpc, dim3* grid) {
+    if (fpc < 1 || fpc > GMAX) return false;
+    *grid = dim3(nb, (nf + fpc - 1) / fpc);
+    return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -370,13 +653,17 @@ int nbf_k1_encode(const void* bits, const void* h1, const void* h2,
                   const void* m, const void* thi, const void* tlo,
                   const void* fk, void* words, void* wit, void* wcnt,
                   void* vseg, void* vcnt, int nf, int nb, int k_lanes,
-                  int nw, int vslots, void* stream) {
-    k1_encode<<<dim3(nb, nf), IPB, 0, (cudaStream_t)stream>>>(
+                  int nw, int vslots, int fpc, void* stream) {
+    dim3 grid;
+    if (!frame_grid(nf, nb, fpc, &grid)) return (int)cudaErrorInvalidValue;
+    const FrameArgs fa = {(const int32_t*)m, (const int32_t*)thi,
+                          (const int32_t*)tlo, (const int32_t*)fk, nullptr};
+    const EncodeOut out = {(int32_t*)words, (uint8_t*)wit, (int32_t*)wcnt,
+                           (int32_t*)vseg, (int32_t*)vcnt};
+    k1_encode<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)bits, (const int32_t*)h1, (const int32_t*)h2,
         (const int32_t*)act_hi, (const int32_t*)act_lo, (const int32_t*)vals,
-        (const int32_t*)m, (const int32_t*)thi, (const int32_t*)tlo,
-        (const int32_t*)fk, (int32_t*)words, (uint8_t*)wit, (int32_t*)wcnt,
-        (int32_t*)vseg, (int32_t*)vcnt, nb, k_lanes, nw, vslots);
+        fa, out, nf, nb, k_lanes, nw, vslots, fpc);
     return (int)cudaGetLastError();
 }
 
@@ -385,13 +672,16 @@ int nbf_k2_membership(const void* words, int wstride, const void* h1,
                       const void* m, const void* thi, const void* tlo,
                       const void* fk, const void* flags, void* passes,
                       void* wcnt, int nf, int nb, int k_lanes, int nw,
-                      void* stream) {
-    k2_membership<<<dim3(nb, nf), IPB, 0, (cudaStream_t)stream>>>(
+                      int fpc, void* stream) {
+    dim3 grid;
+    if (!frame_grid(nf, nb, fpc, &grid)) return (int)cudaErrorInvalidValue;
+    const FrameArgs fa = {(const int32_t*)m, (const int32_t*)thi,
+                          (const int32_t*)tlo, (const int32_t*)fk,
+                          (const int32_t*)flags};
+    k2_membership<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         (const int32_t*)words, wstride, (const int32_t*)h1,
         (const int32_t*)h2, (const int32_t*)act_hi, (const int32_t*)act_lo,
-        (const int32_t*)m, (const int32_t*)thi, (const int32_t*)tlo,
-        (const int32_t*)fk, (const int32_t*)flags, (uint8_t*)passes,
-        (int32_t*)wcnt, nb, k_lanes, nw);
+        fa, (uint8_t*)passes, (int32_t*)wcnt, nf, nb, k_lanes, nw, fpc);
     return (int)cudaGetLastError();
 }
 
@@ -420,12 +710,18 @@ int nbf_k5a_encode(const void* bits, const void* a, const void* b,
                    const void* act, const void* vals, const void* m,
                    const void* fk, void* words, void* wit, void* wcnt,
                    void* vseg, void* vcnt, int nf, int nb, int k_lanes,
-                   int nw, int vslots, void* stream) {
-    k5a_encode<<<dim3(nb, nf), IPB, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)bits, (const int32_t*)a, (const int32_t*)b,
-        (const uint8_t*)act, (const int32_t*)vals, (const int32_t*)m,
-        (const int32_t*)fk, (int32_t*)words, (uint8_t*)wit, (int32_t*)wcnt,
-        (int32_t*)vseg, (int32_t*)vcnt, nb, k_lanes, nw, vslots);
+                   int nw, int vslots, int fpc, void* stream) {
+    dim3 grid;
+    if (!frame_grid(nf, nb, fpc, &grid)) return (int)cudaErrorInvalidValue;
+    const ModItems items = {(const int32_t*)a, (const int32_t*)b,
+                            (const uint8_t*)act};
+    const FrameArgs fa = {(const int32_t*)m, nullptr, nullptr,
+                          (const int32_t*)fk, nullptr};
+    const EncodeOut out = {(int32_t*)words, (uint8_t*)wit, (int32_t*)wcnt,
+                           (int32_t*)vseg, (int32_t*)vcnt};
+    k5a_encode<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)bits, items, (const int32_t*)vals, fa, out, nf, nb,
+        k_lanes, nw, vslots, fpc);
     return (int)cudaGetLastError();
 }
 
@@ -433,12 +729,16 @@ int nbf_k5b_membership(const void* words, int wstride, const void* a,
                        const void* b, const void* act, const void* m,
                        const void* fk, const void* flags, void* passes,
                        void* wcnt, int nf, int nb, int k_lanes, int nw,
-                       void* stream) {
-    k5b_membership<<<dim3(nb, nf), IPB, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)words, wstride, (const int32_t*)a,
-        (const int32_t*)b, (const uint8_t*)act, (const int32_t*)m,
-        (const int32_t*)fk, (const int32_t*)flags, (uint8_t*)passes,
-        (int32_t*)wcnt, nb, k_lanes, nw);
+                       int fpc, void* stream) {
+    dim3 grid;
+    if (!frame_grid(nf, nb, fpc, &grid)) return (int)cudaErrorInvalidValue;
+    const ModItems items = {(const int32_t*)a, (const int32_t*)b,
+                            (const uint8_t*)act};
+    const FrameArgs fa = {(const int32_t*)m, nullptr, nullptr,
+                          (const int32_t*)fk, (const int32_t*)flags};
+    k5b_membership<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)words, wstride, items, fa, (uint8_t*)passes,
+        (int32_t*)wcnt, nf, nb, k_lanes, nw, fpc);
     return (int)cudaGetLastError();
 }
 

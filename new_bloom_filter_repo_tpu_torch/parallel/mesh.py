@@ -105,12 +105,24 @@ def auto_mesh(n_devices: Optional[int] = None, sp: int = 1,
     return make_mesh(n // sp, sp, cards[:n])
 
 
+def default_device(device=None) -> torch.device:
+    """``device``, or the current CUDA card when it is None.  Raises
+    ``RuntimeError`` when no device is named and there is no card: the
+    port runs on the CPU only when asked to."""
+    if device is not None:
+        return _device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA card: pass device="cpu" to run on the '
+                           'CPU')
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def home_device(mesh: Optional[Mesh], device=None) -> torch.device:
     """The device a pipeline keeps its tensors on: the mesh's home
-    device, or ``device`` (default CPU) without a mesh.  A ``device``
-    of another type than the mesh's raises ``ValueError``."""
+    device, or :func:`default_device` of ``device`` without a mesh.  A
+    ``device`` of another type than the mesh's raises ``ValueError``."""
     if mesh is None:
-        return torch.device("cpu" if device is None else device)
+        return default_device(device)
     if device is not None and torch.device(device).type != mesh.home.type:
         raise ValueError(f"device={device!r} is not of the mesh's device "
                          f"type ({mesh.home.type})")

@@ -234,13 +234,13 @@ def make_bits(n, density, seed):
 def test_binary_codec_equals_jax(seed_set, density):
     n = 5000
     bits = make_bits(n, density, seed=int(density * 100))
-    got = BloomFilterCompressor(seed_set=seed_set).compress(bits)
+    got = BloomFilterCompressor(seed_set=seed_set, device="cpu").compress(bits)
     want = JaxCodec(seed_set=seed_set).compress(bits)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     bitmap, witness, p, n_, ratio = got
     k32 = float(np.float32(optimal_compression_params(n, p)[0]))
-    out = BloomFilterCompressor(seed_set=seed_set).decompress(
+    out = BloomFilterCompressor(seed_set=seed_set, device="cpu").decompress(
         bitmap, witness, n, k32)
     np.testing.assert_array_equal(out, bits)
     np.testing.assert_array_equal(
@@ -253,7 +253,7 @@ def test_binary_codec_equals_jax(seed_set, density):
 
 
 def test_binary_codec_edge_cases():
-    c = BloomFilterCompressor()
+    c = BloomFilterCompressor(device="cpu")
     zeros = np.zeros(3000, np.uint8)
     bitmap, witness, p, n, _ = c.compress(zeros)
     assert p == 0.0 and len(witness) == 0
@@ -267,7 +267,8 @@ def test_binary_codec_edge_cases():
                                   sparse)
     assert ratio < 0.2
     with pytest.raises(ValueError, match="unknown seed set"):
-        BloomFilterCompressor(seed_set="nope").compress(make_bits(100, .1, 0))
+        BloomFilterCompressor(seed_set="nope", device="cpu").compress(
+            make_bits(100, .1, 0))
 
 
 def test_binary_codec_decodes_a_foreign_oversized_filter():
@@ -284,7 +285,8 @@ def test_binary_codec_decodes_a_foreign_oversized_filter():
                                         tt.h2, tt.act, l, thi, tlo,
                                         floor_k=fk, l_pad=padded)
     bitmap, witness = arr[:l].numpy(), wit[:int(wlen)].numpy()
-    got = BloomFilterCompressor().decompress(bitmap, witness, n, k32)
+    got = BloomFilterCompressor(device="cpu").decompress(bitmap, witness, n,
+                                                         k32)
     np.testing.assert_array_equal(got, bits)
     np.testing.assert_array_equal(
         JaxCodec().decompress(bitmap, witness, n, k32), bits)
@@ -392,11 +394,11 @@ def test_image_text_decodes_golden_text():
         data = f.read()
     with open(os.path.join(FIXTURES, "golden_text.txt")) as f:
         want = f.read()
-    assert BloomCompressor().decompress_text(data) == want
+    assert BloomCompressor(device="cpu").decompress_text(data) == want
 
 
 def test_image_text_golden_binary_both_ways():
-    c = BloomCompressor()
+    c = BloomCompressor(device="cpu")
     with open(os.path.join(FIXTURES, "golden_binary.bcz"), "rb") as f:
         ref = f.read()
     bits = np.load(os.path.join(FIXTURES, "golden_binary_bits.npy"))
@@ -414,10 +416,10 @@ def test_image_text_text_equals_jax(bit_depth):
         BloomCompressor as JaxBloomCompressor)
 
     text = "rational bloom filters, " * 40 + "the end"
-    got, ratio = BloomCompressor().compress_text(text, bit_depth)
+    got, ratio = BloomCompressor(device="cpu").compress_text(text, bit_depth)
     want, jratio = JaxBloomCompressor().compress_text(text, bit_depth)
     assert got == want and ratio == jratio
-    assert BloomCompressor().decompress_text(got) == text
+    assert BloomCompressor(device="cpu").decompress_text(got) == text
 
 
 def test_image_text_image_roundtrip(tmp_path):
@@ -427,8 +429,9 @@ def test_image_text_image_roundtrip(tmp_path):
     img = (rng.random((30, 40)) < 0.12).astype(np.uint8) * 255
     src = str(tmp_path / "img.png")
     Image.fromarray(img).save(src)
-    data, _ = BloomCompressor().compress_image(src)
-    out = BloomCompressor().decompress_image(data, str(tmp_path / "o.png"))
+    data, _ = BloomCompressor(device="cpu").compress_image(src)
+    out = BloomCompressor(device="cpu").decompress_image(
+        data, str(tmp_path / "o.png"))
     np.testing.assert_array_equal(out, img)
     np.testing.assert_array_equal(np.array(Image.open(tmp_path / "o.png")),
                                   img)
@@ -454,10 +457,11 @@ def test_binary_codec_near_the_longest_filter_is_exact():
     k, l = optimal_compression_params(n, bits.sum() / n)
     assert l > jbc.bitmap_pad(n)
     k32 = float(np.float32(k))
-    bitmap, witness, *_ = BloomFilterCompressor().compress(bits)
+    bitmap, witness, *_ = BloomFilterCompressor(device="cpu").compress(bits)
     assert len(bitmap) == l
     np.testing.assert_array_equal(
-        BloomFilterCompressor().decompress(bitmap, witness, n, k32), bits)
+        BloomFilterCompressor(device="cpu").decompress(bitmap, witness, n,
+                                                       k32), bits)
     np.testing.assert_array_equal(
         JaxCodec().decompress(bitmap, witness, n, k32), bits)
     jbitmap, jwitness, *_ = JaxCodec().compress(bits)

@@ -147,6 +147,26 @@ def test_wrapper_raises_instead_of_falling_back(dev):
         bk.blocked_encode_h(*mixed, **kw)
 
 
+def test_wrapper_rejects_misaligned_items(dev):
+    """K1/K2 load items as vectors: a per-item array that does not start
+    on a 16-byte boundary raises instead of launching."""
+    args, kw = encode_args(dev)
+    bits = args[0]
+    flat = torch.empty(bits.numel() + 1, dtype=torch.uint8, device=dev)
+    shifted = flat[1:].view(bits.shape)
+    shifted.copy_(bits)
+    with pytest.raises(ValueError, match="bits must start on a 16-byte"):
+        bk.blocked_encode_h(shifted, *args[1:], **kw)
+    words = bk.blocked_encode_h(*args, **kw)[0]
+    f = words.shape[0]
+    h1 = torch.empty(args[1].numel() + 1, dtype=torch.int32,
+                     device=dev)[1:].view(args[1].shape)
+    with pytest.raises(ValueError, match="h1 must start on a 16-byte"):
+        bk.blocked_membership_h(words, h1, *args[2:5], *args[6:10],
+                                torch.zeros(f, dtype=torch.int32,
+                                            device=dev), k_lanes=12, nw=12)
+
+
 @pytest.mark.parametrize("name", ["static_gentle", "pan", "scene_cuts"])
 def test_cuda_stream_equals_cpu_stream(dev, tmp_path, name):
     frames = generate_frames(16, 96, 80, seed=0, **SUITE[name])

@@ -67,17 +67,17 @@ def test_no_jax_import_in_port_sources():
 
 def test_unknown_options_still_raise_value_error():
     with pytest.raises(ValueError):
-        ImprovedVideoCompressor(mode="nope")
+        ImprovedVideoCompressor(mode="nope", device="cpu")
     with pytest.raises(ValueError):
-        ImprovedVideoCompressor(profile="nope")
+        ImprovedVideoCompressor(profile="nope", device="cpu")
     with pytest.raises(ValueError):
-        ImprovedVideoCompressor(batch_size=0)
+        ImprovedVideoCompressor(batch_size=0, device="cpu")
     with pytest.raises(ValueError):
-        ImprovedVideoCompressor().compress_video([])
+        ImprovedVideoCompressor(device="cpu").compress_video([])
 
 
 def test_unported_streams_raise(tmp_path):
-    comp = ImprovedVideoCompressor()
+    comp = ImprovedVideoCompressor(device="cpu")
     good = str(tmp_path / "good.bfvc")
     frames = [np.zeros((8, 8, 3), np.uint8)] * 2
     comp.compress_video(frames, good)

@@ -352,3 +352,61 @@ def test_k5_twins_equal_k1_k2_twins_on_mod_tables(case, flagged):
                                          nw=case["nw"])
     for g, w in zip(mem, mem_h):
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' arithmetic that the CPU cannot run
+# ---------------------------------------------------------------------------
+
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def mod_rcp(h, m):
+    """``mod_rcp`` of ops/csrc/blocked.cu step for step, in u32
+    arithmetic held in uint64: rcp = floor((2^32 - 1) / m), once per
+    frame; q = umulhi(h, rcp); r = h - q m; one conditional subtract."""
+    m = np.uint64(m)
+    rcp = _M32 // m
+    q = (h * rcp) >> np.uint64(32)
+    r = (h - ((q * m) & _M32)) & _M32
+    return np.where(r >= m, r - m, r)
+
+
+_RNG_M = [int(x) for x in np.random.default_rng(4).integers(16, 385, 3)]
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 31, 32, 33, 97, 255, 256, 383, 384]
+                         + _RNG_M)
+def test_reciprocal_mod_equals_mod_on_every_24_bit_hash(m):
+    """The kernels' `h mod m` (no `%`) equals `%` for every h < 2^24, the
+    range of the h1/h2 tables."""
+    step = 1 << 22
+    for lo in range(0, 1 << 24, step):
+        h = np.arange(lo, lo + step, dtype=np.uint64)
+        np.testing.assert_array_equal(mod_rcp(h, m), h % np.uint64(m))
+
+
+def test_reciprocal_mod_equals_mod_on_full_u32_hashes():
+    """The bound in the kernel's note holds for any u32 h: every m the
+    stream admits, on seeded hashes and both ends of the range."""
+    rng = np.random.default_rng(5)
+    h = np.concatenate([rng.integers(0, 1 << 32, 1 << 14, dtype=np.uint64),
+                        np.arange(1 << 10, dtype=np.uint64),
+                        (1 << 32) - 1 - np.arange(1 << 10, dtype=np.uint64)])
+    for m in [1] + list(range(16, 385)):
+        np.testing.assert_array_equal(mod_rcp(h, m), h % np.uint64(m))
+
+
+@pytest.mark.parametrize("f,nb,want", [(15, 2032, 15), (16, 2032, 16),
+                                       (15, 512, 8), (15, 513, 8),
+                                       (15, 1, 1), (1, 64, 1),
+                                       (40, 24304, 14)])
+def test_frames_per_cta(f, nb, want):
+    """K1/K2/K5a/K5b walk every frame of a chunk in one CTA (the tables
+    read once) when NB alone fills the card, split the frames when it
+    does not, and never take more than GMAX frames."""
+    fpc = tbk.frames_per_cta(f, nb)
+    assert fpc == want
+    groups = -(-f // fpc)
+    assert 1 <= fpc <= tbk.GMAX and (groups - 1) * fpc < f
+    assert nb * groups >= min(tbk.TARGET_CTAS, nb * f)

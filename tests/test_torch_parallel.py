@@ -301,9 +301,9 @@ def test_make_mesh_layout():
 def test_devices_option_resolution():
     with pytest.raises(ValueError):
         ImprovedVideoCompressor(devices="everything")
-    assert ImprovedVideoCompressor(devices=1).mesh is None
-    assert ImprovedVideoCompressor(devices=(1, 1)).mesh is None
-    assert ImprovedVideoCompressor(devices=None).mesh is None
+    assert ImprovedVideoCompressor(devices=1, device="cpu").mesh is None
+    assert ImprovedVideoCompressor(devices=(1, 1), device="cpu").mesh is None
+    assert ImprovedVideoCompressor(devices=None, device="cpu").mesh is None
     if torch.cuda.device_count() < 8:
         with pytest.raises(ValueError, match="cuda devices"):
             ImprovedVideoCompressor(devices=(4, 2))
@@ -460,7 +460,7 @@ def test_entry_step_equals_jax_entry():
     import jax
     import __graft_entry__ as jentry
 
-    fn, args = graft_entry.entry()
+    fn, args = graft_entry.entry(device="cpu")
     jfn, jargs = jentry.entry()
     got = fn(*args)
     want = [np.asarray(w) for w in jax.jit(jfn)(*jargs)]

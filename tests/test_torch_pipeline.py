@@ -180,7 +180,8 @@ def test_chunk_decoders_agree_with_each_other():
     frames = clip("pan", f=9)
     frames.insert(5, frames[4].copy())            # an EMPTY record
     base, chunk = frames[0], frames[1:]
-    payloads, kf = tbp.BlockedEncoder().encode_chunk_begin(base, chunk)()
+    payloads, kf = tbp.BlockedEncoder(device="cpu").encode_chunk_begin(
+        base, chunk)()
     assert kf == 0
     assert {fc.record_type(p) for p in payloads} == {fc.MOTION, fc.EMPTY}
     dec = tbp.BlockedDecoder(device="cpu")
@@ -206,4 +207,4 @@ def test_decoder_rejects_out_of_range_m():
     bad = bytes([fc.BLOCKED]) + rec[1:]
     base = np.zeros((48, 64, 3), np.uint8)
     with pytest.raises(ValueError, match="sub-filter width 8"):
-        tbp.BlockedDecoder().decode_run(base, [bad])
+        tbp.BlockedDecoder(device="cpu").decode_run(base, [bad])

@@ -59,13 +59,14 @@ def both(tmp_path, frames, color_space="BGR", **kw):
     jpath, tpath = str(tmp_path / "jax.bfvc"), str(tmp_path / "torch.bfvc")
     jstats = JaxCompressor(**kw).compress_video(
         frames, jpath, input_color_space=color_space)
-    tstats = ImprovedVideoCompressor(**kw).compress_video(
+    tstats = ImprovedVideoCompressor(**kw, device="cpu").compress_video(
         frames, tpath, input_color_space=color_space)
     assert read(jpath) == read(tpath), ".bfvc bytes differ"
     for k in ("frame_count", "original_size", "compressed_size",
               "keyframes"):
         assert tstats[k] == jstats[k]
-    from_jax = ImprovedVideoCompressor(**kw).decompress_video(jpath)
+    from_jax = ImprovedVideoCompressor(**kw, device="cpu").decompress_video(
+        jpath)
     bit_exact(from_jax, JaxCompressor(**kw).decompress_video(tpath))
     return tpath, tstats, from_jax
 
@@ -110,7 +111,7 @@ def test_planar_equals_jax_and_is_plane_exact(tmp_path, fmt):
     assert stats["original_size"] == sum(
         sum(f.yuv_info[p].nbytes for p in ("y_plane", "u_plane", "v_plane"))
         for f in frames)
-    rec = ImprovedVideoCompressor().decompress_video(path)
+    rec = ImprovedVideoCompressor(device="cpu").decompress_video(path)
     assert verify_lossless(frames, rec)["lossless"]
     for f, r in zip(frames, rec):
         assert r.yuv_info["format"] == fmt
@@ -120,9 +121,9 @@ def test_planar_equals_jax_and_is_plane_exact(tmp_path, fmt):
 
 def test_planar_beats_444_and_rejects_bad_planes(tmp_path):
     frames = yuv_clip("I420", n=12)
-    p = ImprovedVideoCompressor(profile="planar").compress_video(
+    p = ImprovedVideoCompressor(profile="planar", device="cpu").compress_video(
         frames, str(tmp_path / "p.bfvc"), input_color_space="YUV")
-    f = ImprovedVideoCompressor().compress_video(
+    f = ImprovedVideoCompressor(device="cpu").compress_video(
         frames, str(tmp_path / "f.bfvc"), input_color_space="YUV")
     assert p["compressed_size"] < f["compressed_size"]
     rng = np.random.default_rng(3)
@@ -135,11 +136,11 @@ def test_planar_beats_444_and_rejects_bad_planes(tmp_path):
             "u_plane": rng.integers(0, 1023, (8, 8), dtype=np.uint16),
             "v_plane": rng.integers(0, 1023, (8, 8), dtype=np.uint16)}))
     with pytest.raises(ValueError, match="uint8"):
-        ImprovedVideoCompressor(profile="planar").compress_video(
+        ImprovedVideoCompressor(profile="planar", device="cpu").compress_video(
             deep, input_color_space="YUV")
     mixed = yuv_clip("I420", n=2) + yuv_clip("YUV444", n=1)
     with pytest.raises(ValueError, match="uniform plane geometry"):
-        ImprovedVideoCompressor(profile="planar").compress_video(
+        ImprovedVideoCompressor(profile="planar", device="cpu").compress_video(
             mixed, input_color_space="YUV")
 
 
@@ -184,12 +185,14 @@ def test_byte_view_equals_jax_bit_pattern_exact(tmp_path, kind):
     frames = byte_view_clip(kind)
     path, stats, from_jax = both(tmp_path, frames, keyframe_interval=6)
     bit_exact(from_jax, frames)
-    bit_exact(ImprovedVideoCompressor().decompress_video(path), frames)
+    bit_exact(ImprovedVideoCompressor(device="cpu").decompress_video(path),
+              frames)
     types = record_types(path)
     assert types[0] in (fc.KEYFRAME, fc.FILTERED, fc.KEYFRAME_S)
     assert any(t not in (fc.KEYFRAME, fc.FILTERED, fc.KEYFRAME_S)
                for t in types[1:]), types
-    key = ImprovedVideoCompressor(mode="keyframe").compress_video(
+    key = ImprovedVideoCompressor(mode="keyframe",
+                                  device="cpu").compress_video(
         frames, str(tmp_path / "k.bfvc"))
     assert stats["compressed_size"] < key["compressed_size"]
 
@@ -207,14 +210,14 @@ def test_byte_view_runs_the_blocked_kernels(monkeypatch, tmp_path):
 
     monkeypatch.setattr(video_mod.blocked_pipeline.BlockedEncoder,
                         "encode_chunk_begin", spy)
-    comp = ImprovedVideoCompressor(keyframe_interval=6)
+    comp = ImprovedVideoCompressor(keyframe_interval=6, device="cpu")
     comp.compress_video(frames, str(tmp_path / "u16.bfvc"))
     assert seen == [(np.uint8, (32, 96), True)]
 
 
 def test_byte_domain_rejects_host_predicted_wrappers():
     prev = np.zeros((4, 4), np.uint16)
-    comp = ImprovedVideoCompressor()
+    comp = ImprovedVideoCompressor(device="cpu")
     for rtype, name in [(fc.TILES, "tile-motion"), (fc.ZOOM_G, "zoom"),
                         (fc.ROT_G, "rotation"), (fc.AVG2, "avg2"),
                         (fc.REF_HP, "multi-ref")]:
@@ -257,7 +260,8 @@ def test_bfv2_equals_jax_and_loop(tmp_path, name):
     else:
         assert any(ImprovedVideoCompressor._is_legacy_bloom(p)
                    for p in container.read_bfvc(path)[1])
-    comp = ImprovedVideoCompressor(profile="bfv2", keyframe_interval=ki)
+    comp = ImprovedVideoCompressor(profile="bfv2", keyframe_interval=ki,
+                                   device="cpu")
     assert comp._encode_frames(frames) == comp._encode_frames_loop(frames)
 
 
@@ -266,10 +270,10 @@ def test_cross_profile_decode(tmp_path):
     out = []
     for profile in ("bfv2", "blocked"):
         path = str(tmp_path / f"{profile}.bfvc")
-        ImprovedVideoCompressor(profile=profile,
-                                keyframe_interval=5).compress_video(frames,
-                                                                    path)
-        out.append(ImprovedVideoCompressor().decompress_video(path))
+        ImprovedVideoCompressor(profile=profile, keyframe_interval=5,
+                                device="cpu").compress_video(frames, path)
+        out.append(ImprovedVideoCompressor(device="cpu").decompress_video(
+            path))
     bit_exact(out[0], out[1])
     bit_exact(out[0], frames)
 
@@ -279,7 +283,7 @@ def test_bfv2_records_in_a_byte_domain_stream(tmp_path):
     path never writes them, but its decoder reads them): written by hand
     from the byte view's masks, decoded bit-exactly by both packages."""
     frames = byte_view_clip("uint16")[:3]
-    codec = ImprovedVideoCompressor().bloom_compressor
+    codec = ImprovedVideoCompressor(device="cpu").bloom_compressor
     payloads = [fc.encode_keyframe_best(frames[0], None)]
     for prev, cur in zip(frames, frames[1:]):
         pv, cv = (ImprovedVideoCompressor._byte_view(x) for x in (prev, cur))
@@ -289,7 +293,8 @@ def test_bfv2_records_in_a_byte_domain_stream(tmp_path):
     path = str(tmp_path / "b.bfvc")
     container.write_bfvc(path, payloads, container.MAGIC_BLOOM)
     assert ImprovedVideoCompressor._is_legacy_bloom(payloads[1])
-    bit_exact(ImprovedVideoCompressor().decompress_video(path), frames)
+    bit_exact(ImprovedVideoCompressor(device="cpu").decompress_video(path),
+              frames)
     bit_exact(JaxCompressor().decompress_video(path), frames)
 
 
@@ -321,7 +326,7 @@ def test_near_lossless_equals_jax_and_its_reconstruction(tmp_path,
               use_direct_yuv=direct_yuv)
     path, _, from_jax = both(tmp_path, frames, **kw)
     assert len(recon) == len(frames) - 1      # every inter frame
-    dec = ImprovedVideoCompressor(**kw).decompress_video(path)
+    dec = ImprovedVideoCompressor(**kw, device="cpu").decompress_video(path)
     bit_exact(dec[1:], recon)
     np.testing.assert_array_equal(dec[0], frames[0])
     patch = np.asarray(dec[-1])[8:20, 31:41]
@@ -342,7 +347,7 @@ def test_frame_threshold_sigma_equals_jax(gray):
         got = float(tmedian.noise_level(torch.from_numpy(x)))
         np.testing.assert_allclose(got, want, rtol=1e-6)
         np.testing.assert_allclose(
-            ImprovedVideoCompressor(**kw)._frame_threshold(x),
+            ImprovedVideoCompressor(**kw, device="cpu")._frame_threshold(x),
             JaxCompressor(**kw)._frame_threshold(x), rtol=1e-6)
 
 
@@ -365,18 +370,19 @@ def test_keyframe_mode_writes_golden_bytes(tmp_path):
     file byte for byte (DEFLATE level 9), and the port decodes it; each
     mode's keyframe DEFLATE level is the JAX package's."""
     for mode in ("bloom", "keyframe"):
-        assert (ImprovedVideoCompressor(mode=mode)._keyframe_zlib_level
+        assert (ImprovedVideoCompressor(mode=mode,
+                                        device="cpu")._keyframe_zlib_level
                 == JaxCompressor(mode=mode)._keyframe_zlib_level)
     frames = np.load(os.path.join(FIXTURES, "golden_frames.npz"))["bgr"]
     out = str(tmp_path / "ours.bfvc")
-    ImprovedVideoCompressor(mode="keyframe").compress_video(list(frames),
-                                                            out)
+    ImprovedVideoCompressor(mode="keyframe", device="cpu").compress_video(
+        list(frames), out)
     assert read(out) == read(os.path.join(FIXTURES, "golden_ref.bfvc"))
     assert container.read_bfvc(out)[0] == container.MAGIC_FIXED
-    rec = ImprovedVideoCompressor().decompress_video(
+    rec = ImprovedVideoCompressor(device="cpu").decompress_video(
         os.path.join(FIXTURES, "golden_ref.bfvc"))
     bit_exact(rec, list(frames))
-    gray = ImprovedVideoCompressor().decompress_video(
+    gray = ImprovedVideoCompressor(device="cpu").decompress_video(
         os.path.join(FIXTURES, "golden_ref_gray.bfvc"))
     bit_exact(gray, JaxCompressor().decompress_video(
         os.path.join(FIXTURES, "golden_ref_gray.bfvc")))

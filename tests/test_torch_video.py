@@ -82,8 +82,8 @@ def test_bfvc_byte_identical_and_cross_decodes(tmp_path, name):
     for k in ("frame_count", "original_size", "compressed_size",
               "keyframes"):
         assert tstats[k] == jstats[k]
-    assert_frames_equal(ImprovedVideoCompressor().decompress_video(jpath),
-                        frames)
+    assert_frames_equal(
+        ImprovedVideoCompressor(device="cpu").decompress_video(jpath), frames)
     assert_frames_equal(JaxCompressor().decompress_video(tpath), frames)
 
 
@@ -100,7 +100,7 @@ def test_chunking_and_prefetch_do_not_change_bytes(tmp_path):
     for bs, prefetch in [(4, True), (4, False), (15, True)]:
         path = str(tmp_path / f"t{bs}{prefetch}.bfvc")
         comp = ImprovedVideoCompressor(keyframe_interval=9, batch_size=bs,
-                                       prefetch=prefetch)
+                                       prefetch=prefetch, device="cpu")
         comp.compress_video(frames, path)
         with open(path, "rb") as fh:
             got = fh.read()
@@ -131,23 +131,24 @@ def test_decodes_jax_fixture():
                                                  fc.BLOCKED_S)
                for k in kinds)
     frames = clip("pan", 16, 96, 80)
-    assert_frames_equal(ImprovedVideoCompressor().decompress_video(FIXTURE),
-                        frames)
+    assert_frames_equal(
+        ImprovedVideoCompressor(device="cpu").decompress_video(FIXTURE),
+        frames)
 
 
 def test_yuv_color_space_and_single_frame(tmp_path):
     frames = clip("static_gentle", 6, 64, 48)
     jpath, tpath = str(tmp_path / "j.bfvc"), str(tmp_path / "t.bfvc")
     JaxCompressor().compress_video(frames, jpath, input_color_space="YUV")
-    ImprovedVideoCompressor().compress_video(frames, tpath,
+    ImprovedVideoCompressor(device="cpu").compress_video(frames, tpath,
                                              input_color_space="YUV")
     with open(jpath, "rb") as a, open(tpath, "rb") as b:
         assert a.read() == b.read()
-    dec = ImprovedVideoCompressor().decompress_video(tpath)
+    dec = ImprovedVideoCompressor(device="cpu").decompress_video(tpath)
     assert hasattr(dec[-1], "yuv_info")
     assert_frames_equal([np.asarray(d.data) for d in dec], frames)
     one = str(tmp_path / "one.bfvc")
-    ImprovedVideoCompressor().compress_video(frames[:1], one)
+    ImprovedVideoCompressor(device="cpu").compress_video(frames[:1], one)
     JaxCompressor().compress_video(frames[:1], jpath)
     with open(jpath, "rb") as a, open(one, "rb") as b:
         assert a.read() == b.read()
