@@ -20,14 +20,17 @@ its plain PyTorch twin on the card.  Phases:
    NB = 512) and of each phase-9 clip's byte view (NB = 12152, 24304
    and 8104), and on the m sweep: every sub-filter width the stream
    admits (m = 1 and 16..384) over 25 launches of 15 frames at NB = 64,
-   then F = 1, F = 16, NB = 1 and NB = 513; exact equality (tolerance
-   0); K5a and K5b run on the ``_frame_mod_tables`` of the same inputs
-   and must also equal K1 and K2.  On the real chunk each kernel is
-   timed warm (mean of 20 launches queued behind a spin of the card, so
-   the host's launch cost does not show), K1 and K2 also cold (each
-   launch after a 128 MiB write that evicts the L2, the launch alone
-   timed), and the bytes each kernel must move give its bound at the
-   H100's 3.35 TB/s;
+   then F = 1, F = 16, NB = 1 and NB = 513; K3 and K4 also on inputs
+   made directly (every, no, half and few items passing, more changed
+   items than value slots, alternating flagged frames, F = 1 and 17, NB
+   = 1 and 2033); exact equality (tolerance 0); K5a and K5b run on the
+   ``_frame_mod_tables`` of the same inputs and must also equal K1 and
+   K2.  On the real chunk each kernel is timed warm (mean of 20 launches
+   queued behind a spin of the card, so the host's launch cost does not
+   show) and cold (each launch after a 128 MiB write that evicts the
+   L2, the launch alone timed), K1-K4 also with a part of their work
+   taken away (the "parts" line), and the bytes each kernel must move
+   give its bound at the H100's 3.35 TB/s;
 3. the bench clip (1920x1080x3, 31 frames), round trip bit-exact;
 4. the synthetic ``pan`` clip (seed 0, 31 frames, 1080p), round trip
    bit-exact, with type-6 motion records; the launches of each kernel
@@ -80,7 +83,7 @@ The second-to-last lines are the
 per-kernel JSON (launches summed over the path runs) and the card's
 name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.  Beside the contract's keys, each kernel's entry carries the
-``bytes`` behind ``bound_ms``, ``cold_ms`` (K1, K2) and its ptxas
+``bytes`` behind ``bound_ms``, ``cold_ms`` and its ptxas
 registers and spill bytes.  Exits non-zero without a CUDA card.
 
 ``--kernels-only`` stops after phase 2 and prints no JSON: a copy of
@@ -253,8 +256,8 @@ def max_abs_err(got, want) -> int:
 
 
 def kernel_cases(enc_args, enc_kw, dev, flagged: bool, seed: int):
-    """[(name, kernel call, twin call)] for K1-K5b on one input mix, and
-    the mix's flags.  The decode kernels take K1's outputs (the twin's,
+    """[(name, kernel call, twin call)] for K1-K5b on one input mix, the
+    mix's flags, and K4's inputs and K3's base on it.  The decode kernels take K1's outputs (the twin's,
     which the kernel must equal); K5a and K5b take the
     ``_frame_mod_tables`` of K1's and K2's inputs; with ``flagged``,
     every third frame is a pass-through frame with a random raw mask."""
@@ -301,7 +304,7 @@ def kernel_cases(enc_args, enc_kw, dev, flagged: bool, seed: int):
         ("blocked_membership",
          lambda: bk.blocked_membership(*mem5, k_lanes=k_lanes, nw=nw),
          lambda: bk.blocked_membership_ref(*mem5, k_lanes=k_lanes, nw=nw)),
-    ], flags
+    ], flags, exp, base
 
 
 # K5a/K5b must equal K1/K2 on the materialized tables of the same inputs
@@ -368,15 +371,17 @@ def kernel_bytes(enc_args, kw, flags, want):
     }
 
 
-COLD = ("blocked_encode_h", "blocked_membership_h")
-
-
-def time_parts(enc_args, kw, words, reps):
-    """K1 and K2 on the real chunk with one part of their work taken
-    away, to show where their time goes: K1 with no changed item (no
-    OR-insert, witness bit or value), K1 with vh = 1 (32 value slots a
-    block in place of vh * 32), K2 with every frame flagged (no
-    membership test; the passes are zeros)."""
+def time_parts(enc_args, kw, words, exp, base, mask, reps):
+    """Each kernel of the main path on the real chunk with one part of
+    its work taken away, to show where its time goes: K1 with no changed
+    item (no OR-insert, witness bit or value), K1 with vh = 1 (32 value
+    slots a block in place of vh * 32), K2 with every frame flagged (no
+    membership test; the passes are zeros); K3 and K4 with every frame
+    flagged and the chunk's own change mask as the raw mask (no pass
+    ranks, no witness bits; the same values), with vh = 1 (the value
+    segment cut to 32 slots), and with no passing item (no changed item,
+    so no value).  ``exp``: K4's inputs on the chunk (passes, wit, raw,
+    flags, vseg); ``mask``: its mask."""
     import torch
     from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
 
@@ -384,7 +389,13 @@ def time_parts(enc_args, kw, words, reps):
     none = (torch.zeros_like(bits),) + tuple(enc_args[1:])
     flags = torch.ones(bits.shape[0], dtype=torch.int32, device=bits.device)
     mem = (words, h1, h2, ahi, alo, m, thi, tlo, fk, flags)
-    return {
+    passes, wit, _, _, vseg = exp
+    parts = {
+        "every frame flagged": (passes, wit, mask, flags, vseg),
+        "vh = 1": (passes, wit, exp[2], exp[3],
+                   vseg[..., :32].contiguous()),
+        "no passing item": (torch.zeros_like(passes),) + tuple(exp[1:])}
+    out = {
         "K1 with no changed item": time_ms(
             lambda: bk.blocked_encode_h(*none, **kw), reps),
         "K1 with vh = 1": time_ms(
@@ -392,6 +403,79 @@ def time_parts(enc_args, kw, words, reps):
         "K2 with every frame flagged": time_ms(
             lambda: bk.blocked_membership_h(*mem, k_lanes=kw["k_lanes"],
                                             nw=kw["nw"]), reps)}
+    for label, args in parts.items():
+        vh = 1 if label == "vh = 1" else kw["vh"]
+        out[f"K3 with {label}"] = time_ms(
+            lambda: bk.blocked_expand_chain(*args, base, vh=vh), reps)
+        out[f"K4 with {label}"] = time_ms(
+            lambda: bk.blocked_expand(*args, vh=vh), reps)
+    return out
+
+
+def expand_edge_inputs(f, nb, vh, dens, flagged, dev, seed=0):
+    """K3/K4 inputs made directly (passes, wit, raw, flags, vseg, base),
+    as tests/test_torch_cuda.py makes them: frame i passes items at
+    density ``dens[i % len(dens)]`` (1: every item, 0: none); block 0
+    has every witness bit set, so with every item passing its rank-1023
+    item reads the last bit; the ``flagged`` frames take a raw mask of
+    density 0.4 (unflagged frames carry one too, which they must
+    ignore); ``vh`` may leave fewer value slots than changed items."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    d = np.resize(np.asarray(dens, np.float64), f).reshape(-1, 1, 1)
+    passes = (rng.random((f, nb, 1024)) < d).astype(np.uint8)
+    wit = rng.integers(0, 256, (f, nb, 128), dtype=np.uint8)
+    wit[:, 0] = 0xFF
+    flags = np.zeros(f, np.int32)
+    flags[list(flagged)] = 1
+    raw = (rng.random((f, nb, 1024)) < 0.4).astype(np.uint8)
+    vseg = rng.integers(0, 1 << 24, (f, nb, vh * 32), dtype=np.int32)
+    base = rng.integers(0, 1 << 24, (nb, 1024), dtype=np.int32)
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (passes, wit, raw, flags, vseg, base))
+
+
+# K3/K4 edge inputs (F, NB, vh, pass densities by frame, flagged frames):
+# every, no, half and few items passing; alternating flagged frames; F =
+# 1 and 17 (odd: the last trip of the unrolled frame loop runs one
+# frame); NB = 1 and 2033; vh = 4 and 1 leave fewer value slots than
+# changed items.
+EXPAND_EDGES = {
+    "F=17 NB=2033 vh=4, all/none/half/few passing, odd frames flagged":
+        (17, 2033, 4, [1.0, 0.0, 0.5, 0.03], range(1, 17, 2)),
+    "F=1 NB=2033 vh=32, every item passing":
+        (1, 2033, 32, [1.0], []),
+    "F=17 NB=1 vh=32": (17, 1, 32, [1.0, 0.5, 0.0], range(0, 17, 3)),
+    "F=1 NB=1 vh=1, every item passing": (1, 1, 1, [1.0], []),
+}
+
+
+def expand_edges(dev, out):
+    """K3 and K4 against their twins on EXPAND_EDGES (tolerance 0);
+    folds each error into ``out``'s records."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+
+    for label, spec in EXPAND_EDGES.items():
+        *exp, base = expand_edge_inputs(*spec, dev, seed=3)
+        vh = spec[2]
+        errs = {
+            "blocked_expand_chain": max_abs_err(
+                bk.blocked_expand_chain(*exp, base, vh=vh),
+                bk.blocked_expand_chain_ref(*exp, base, vh=vh)),
+            "blocked_expand": max_abs_err(bk.blocked_expand(*exp, vh=vh),
+                                          bk.blocked_expand_ref(*exp,
+                                                                vh=vh))}
+        torch.cuda.synchronize()
+        for name, err in errs.items():
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        log(f"  mix K3/K4 edge {label}: K3 max_abs_err="
+            f"{errs['blocked_expand_chain']}, K4 max_abs_err="
+            f"{errs['blocked_expand']}")
+        if any(errs.values()):
+            raise AssertionError(f"K3/K4 disagree with their twins on the "
+                                 f"edge input {label}: {errs}")
 
 
 def phase_kernels(dev, frames, path_chunks=(), reps: int = 20,
@@ -400,7 +484,7 @@ def phase_kernels(dev, frames, path_chunks=(), reps: int = 20,
     an edge mix at its shape, on the first chunk of each clip of
     ``path_chunks`` ((label, frames) at the other paths' shapes) and on
     the m sweep, each mix built just before it runs; returns {wrapper
-    name: {max_abs_err, ms, plain_ms, bytes, bound_ms (, cold_ms)}}
+    name: {max_abs_err, ms, plain_ms, cold_ms, bytes, bound_ms}}
     (times and bytes from the first chunk of ``frames``)."""
     import torch
     from new_bloom_filter_repo_tpu_torch.ops.hashtables import blocked_tables
@@ -426,7 +510,7 @@ def phase_kernels(dev, frames, path_chunks=(), reps: int = 20,
         if not quiet:
             log(head)
         got_by_name, want_by_name, worst = {}, {}, 0
-        cases, flags = kernel_cases(args, kw, dev, flagged, seed)
+        cases, flags, exp, base = kernel_cases(args, kw, dev, flagged, seed)
         for name, kern, twin in cases:
             got = kern()
             want = twin()
@@ -446,10 +530,9 @@ def phase_kernels(dev, frames, path_chunks=(), reps: int = 20,
                 rec["plain_ms"] = time_ms(twin, twin_reps)
                 line += (f"; kernel {rec['ms']:.4f} ms, plain twin "
                          f"{rec['plain_ms']:.4f} ms")
-                if name in COLD:
-                    rec["cold_ms"] = time_cold_ms(kern, reps)
-                    line += (f", kernel after an L2 flush "
-                             f"{rec['cold_ms']:.4f} ms")
+                rec["cold_ms"] = time_cold_ms(kern, reps)
+                line += (f", kernel after an L2 flush "
+                         f"{rec['cold_ms']:.4f} ms")
             if not quiet:
                 log(line)
             worst = max(worst, err)
@@ -459,8 +542,11 @@ def phase_kernels(dev, frames, path_chunks=(), reps: int = 20,
                                      f"max_abs_err={err}")
         if quiet:
             log(f"{head}: all six max_abs_err={worst}")
+        if label == "edge mix + flags":
+            expand_edges(dev, out)
         if label == "real chunk":
             parts = time_parts(args, kw, want_by_name["blocked_encode_h"][0],
+                               exp, base, want_by_name["blocked_expand"][0],
                                reps)
             log("    parts: " + ", ".join(f"{k} {v:.4f} ms"
                                           for k, v in parts.items()))

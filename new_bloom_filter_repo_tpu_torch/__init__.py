@@ -19,7 +19,15 @@ devices driven by one process (``parallel/``).  It never imports
 
 __version__ = "0.1.0"
 
-from new_bloom_filter_repo_tpu_torch.models.bloom import (  # noqa: F401
+# The shared host library native/libnbf.so is built here, on import, once
+# across processes and atomically (utils/native.ensure_built); a library
+# that cannot be built or loaded raises now instead of leaving the codec
+# on other paths.
+from new_bloom_filter_repo_tpu_torch.utils import native as _native
+
+_native.load()
+
+from new_bloom_filter_repo_tpu_torch.models.bloom import (  # noqa: F401,E402
     RationalBloomFilter,
     StandardBloomFilter,
 )

@@ -277,10 +277,15 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
+# Arrays the kernels read as vectors besides the per-item ones (K3/K4).
+_VECTOR_ROWS = ("wit", "vseg")
+
+
 def _cuda_args(device, named: Dict[str, tuple]):
     """Check each (tensor, dtype, shape) for the kernel and return the
-    tensors' device pointers, in order.  Per-item arrays (last axis IPB)
-    must start on a 16-byte boundary: the kernels load them as vectors."""
+    tensors' device pointers, in order.  Per-item arrays (last axis IPB),
+    witness segments and value segments must start on a 16-byte
+    boundary: the kernels load them as vectors."""
     ptrs = []
     for name, (t, dtype, shape) in named.items():
         if t.device != device:
@@ -292,7 +297,7 @@ def _cuda_args(device, named: Dict[str, tuple]):
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if shape[-1] == IPB and t.data_ptr() % 16:
+        if (shape[-1] == IPB or name in _VECTOR_ROWS) and t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
         ptrs.append(t.data_ptr())
     return ptrs

@@ -16,9 +16,9 @@
 // set by device-memory bytes.  The kernels keep everything a block needs
 // between its passes (the <= 12 sub-filter words, the 32 witness words,
 // warp counts, compacted values) in shared memory, so no intermediate
-// touches device memory; what holds them back is instruction issue and
-// latency (K1 most of all its per-item work on changed items), not
-// bytes (PERF.md).
+// touches device memory.  What holds K1 and K2 back is instruction issue
+// and latency (K1 most of all its per-item work on changed items), not
+// bytes; K3 and K4 come closer to their bytes (PERF.md).
 //
 // K1/K2 and K5a/K5b (encode_frames, membership_frames).  One CTA of 256
 // threads owns one block and a group of up to GMAX frames, and walks
@@ -47,8 +47,11 @@
 // (a, b, act) come from global memory, per frame, instead of the hash
 // prelude.  They read ~9 B per item per frame more than K1/K2.
 //
-// K3/K4 keep one block (1024 items) per CTA, one item per thread
-// (expand_item); K3 loops over the frames of its block column.
+// K3/K4 (expand_frames) take the same shape: a CTA of 256 threads walks
+// one block through its frames (K3 all of them, chaining the running
+// pixels; K4 a group), 4 items a thread, ranks by warp scans, witness
+// bits by funnel shifts of words held one a lane, values staged in
+// shared memory, the next frame's loads issued a frame ahead.
 //
 // What the TPU kernels needed and these do not: Mosaic had no scatter
 // and no integer divide, so the Pallas code routed compaction through a
@@ -66,7 +69,8 @@
 // Every entry point is a plain C function: it launches on the stream it
 // is given, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
-// The per-item arrays must be 16-byte aligned (the wrapper checks).
+// The per-item arrays, witness and value segments must be 16-byte
+// aligned (the wrapper checks).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,8 +83,8 @@ constexpr int WW = IPB / 32;      // witness u32 words per block
 constexpr int WIT_BYTES = IPB / 8;
 constexpr unsigned FULL = 0xffffffffu;
 
-constexpr int IPT = 4;                // items per thread (K1, K2, K5a, K5b)
-constexpr int THREADS = IPB / IPT;    // threads per CTA (K1, K2, K5a, K5b)
+constexpr int IPT = 4;                // items per thread
+constexpr int THREADS = IPB / IPT;    // threads per CTA
 constexpr int WARPS = THREADS / 32;
 // Most frames one CTA walks; defined once, by ops/_build.py, which also
 // gives it to the wrappers that choose the frame groups.
@@ -540,101 +544,223 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS) k5b_membership(
 // K3, K4
 // ---------------------------------------------------------------------------
 
-// Exclusive rank of this thread among the threads of the CTA whose
-// `pred` is true, in thread order; `*total` receives the count.  Needs
-// blockDim.x == IPB.  `warp_buf` is 32 ints of shared memory.  Ends with
-// a barrier, so the buffer may be reused by the next call.
-__device__ __forceinline__ int block_rank(bool pred, int* warp_buf,
-                                          int* total_buf, int* total) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const unsigned bal = __ballot_sync(FULL, pred);
-    if (lane == 0) warp_buf[warp] = __popc(bal);
-    __syncthreads();
-    if (warp == 0) {
-        const int v = warp_buf[lane];
-        int inc = v;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-            const int n = __shfl_up_sync(FULL, inc, o);
-            if (lane >= o) inc += n;
-        }
-        warp_buf[lane] = inc - v;             // exclusive warp prefix
-        if (lane == 31) *total_buf = inc;
-    }
-    __syncthreads();
-    const int rank = warp_buf[warp] + __popc(bal & ((1u << lane) - 1u));
-    *total = *total_buf;
-    __syncthreads();
-    return rank;
+// K3 and K4 (expand_frames).  One CTA of 256 threads walks one block
+// through a run of frames, 4 consecutive items a thread, like K1/K2:
+//
+// * the thread's passes (or, on a flagged frame, raw mask bytes) come
+//   as one uchar4, the block's 32 witness words as one u32 a lane (each
+//   warp loads all 32), the value segment as one int4 a thread, staged
+//   in shared memory; a frame's loads are issued before the previous
+//   frame's scans, so the walk overlaps memory with work;
+// * ranks come from a warp scan of the thread's counts and a warp
+//   reduction of the 8 warp totals: one barrier a scan, two a frame
+//   (one on a flagged frame, which needs no pass ranks);
+// * a thread's passing items have consecutive ranks r0.., so their
+//   witness bits are the top bits of one funnel shift of witness words
+//   r0 / 32 and r0 / 32 + 1, taken from their lanes with __shfl_sync;
+//   its changed items read consecutive value slots from shared memory;
+// * the warp totals and the staged value segment are double-buffered by
+//   frame parity, and the frame loop is unrolled by two, so the parity
+//   is a constant.  Every frame passes at least one barrier after its
+//   writes to buffer P and before its reads of it, and frame f + 2
+//   writes buffer P only after passing a barrier of frame f + 1, which
+//   every thread reaches after its last read of frame f;
+// * inputs read once and outputs are streamed past the caches (__ldcs,
+//   __stcs).
+//
+// K3 chains a block column through all its frames, with the running
+// pixels (4 a thread) in registers; K4 writes mask and values, with the
+// frames split into groups so the grid fills the card.  What bounds
+// them now is device-memory traffic: besides the outputs (5 B an item
+// for K4), each frame reads its whole value segment, vh * 32 slots, of
+// which only the changed items' are used; gathering those slots from
+// device memory after the mask scan instead reads fewer bytes but puts a
+// load on the frame's critical path: it measured faster for K4, slower
+// for K3.  One frame of loads ahead is all the 32 registers allow: two
+// frames ahead spill.
+// K4 splits the frames into the fewest groups that give NB x groups >=
+// this many CTAs (5 frames a CTA at 1080p): fewer frames a CTA lose the
+// overlap of one frame's loads with the last one's work, more leave the
+// card a tail of waves.
+constexpr int K4_TARGET_CTAS = 4096;
+// CTAs an SM must hold: caps registers at 32 a thread, without spills;
+// 8 CTAs an SM ran faster than 6 (40 registers) or 4.
+constexpr int EXPAND_MIN_CTAS = 8;
+
+struct ExpandIn {
+    const uint8_t* passes;
+    const uint8_t* wit;
+    const uint8_t* raw;
+    const int32_t* flags;
+    const int32_t* vseg;
+    int nb, vslots;
+};
+
+struct ExpandSmem {
+    int4 vseg[2][IPB / IPT];     // first, so 16-byte aligned
+    int ptot[2][WARPS];          // per-warp pass counts
+    int mtot[2][WARPS];          // per-warp change counts
+};
+
+// What a thread loads for one (frame, block).
+struct ExpandLoad {
+    uchar4 b4;       // passes, or raw mask bytes when flagged
+    uint32_t ww;     // witness word `lane` of the block (0 when flagged)
+    int4 v4;         // value slots 4t..4t+3 (when inside the segment)
+    bool flagged;
+};
+
+__device__ __forceinline__ ExpandLoad expand_load(const ExpandIn& in, int f,
+                                                  int blk) {
+    const int t = threadIdx.x;
+    const size_t row = (size_t)f * in.nb + blk;
+    ExpandLoad ld;
+    ld.flagged = __ldg(in.flags + f) != 0;
+    const uint8_t* src = ld.flagged ? in.raw : in.passes;
+    ld.b4 = __ldcs(reinterpret_cast<const uchar4*>(src) + row * THREADS + t);
+    ld.ww = ld.flagged ? 0u : __byte_perm(
+        __ldg(reinterpret_cast<const uint32_t*>(in.wit) + row * WW
+              + (t & 31)), 0u, 0x0123);
+    ld.v4 = IPT * t < in.vslots
+        ? __ldcs(reinterpret_cast<const int4*>(in.vseg)
+                + row * (in.vslots / IPT) + t)
+        : make_int4(0, 0, 0, 0);
+    return ld;
 }
 
-// Change mask and value of one item of one frame (K3 and K4): a passing
-// item of rank r among the block's passes reads witness bit r; a flagged
-// (pass-through, sparse or empty) frame uses its raw mask instead; the
-// i-th changed item takes vseg[i] (0 beyond the segment's slots).
-__device__ __forceinline__ bool expand_item(
-        const uint8_t* __restrict__ passes, const uint8_t* __restrict__ wit,
-        const uint8_t* __restrict__ raw, bool flagged,
-        const int32_t* __restrict__ vseg, size_t row, int vslots,
-        int* warp_buf, int* total_buf, int32_t* val) {
-    const int t = threadIdx.x;
-    const size_t item = row * IPB + t;
-    const bool p = passes[item] != 0;
-    int total;
-    const int r = block_rank(p, warp_buf, total_buf, &total);
-    bool mask;
-    if (flagged) {
-        mask = raw[item] != 0;
-    } else {
-        mask = p && ((wit[row * WIT_BYTES + (r >> 3)] >> (7 - (r & 7))) & 1);
+// Inclusive warp scan of v (lane order).
+__device__ __forceinline__ int warp_incl(int v) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int n = __shfl_up_sync(FULL, v, o);
+        if (lane >= o) v += n;
     }
-    const int slot = block_rank(mask, warp_buf, total_buf, &total);
-    *val = (mask && slot < vslots) ? vseg[row * vslots + slot] : 0;
-    return mask;
+    return v;
+}
+
+// Exclusive rank, among the CTA's items in item order, of the first of
+// the thread's `own` items; one barrier.
+__device__ __forceinline__ int cta_rank(int own, int* wtot) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int incl = warp_incl(own);
+    if (lane == 31) wtot[warp] = incl;
+    __syncthreads();
+    const int wv = lane < WARPS ? wtot[lane] : 0;
+    return __reduce_add_sync(FULL, lane < warp ? wv : 0) + incl - own;
+}
+
+// Change mask and values of the thread's four items of one frame: a
+// passing item of rank r takes witness bit r; a flagged (pass-through,
+// sparse or empty) frame takes its raw mask instead; the i-th changed
+// item takes value slot i, or 0 past the segment.
+template <int P>
+__device__ __forceinline__ void expand_frame(ExpandSmem& sh,
+                                             const ExpandLoad& ld,
+                                             int vslots, bool mask[IPT],
+                                             int32_t val[IPT]) {
+    const int t = threadIdx.x;
+    if (IPT * t < vslots) sh.vseg[P][t] = ld.v4;
+    const bool b[IPT] = {ld.b4.x != 0, ld.b4.y != 0, ld.b4.z != 0,
+                         ld.b4.w != 0};
+    if (ld.flagged) {
+#pragma unroll
+        for (int i = 0; i < IPT; ++i) mask[i] = b[i];
+    } else {
+        const int r0 = cta_rank(b[0] + b[1] + b[2] + b[3], sh.ptot[P]);
+        // witness bits r0, r0 + 1, ... from bit 31 down (r0 + 3 < 1024,
+        // so word r0 / 32 + 1 exists where a bit of it is taken)
+        const uint32_t hi = __shfl_sync(FULL, ld.ww, (r0 >> 5) & 31);
+        const uint32_t lo = __shfl_sync(FULL, ld.ww, ((r0 >> 5) + 1) & 31);
+        uint32_t bits = __funnelshift_l(lo, hi, (uint32_t)r0);
+#pragma unroll
+        for (int i = 0; i < IPT; ++i) {
+            mask[i] = b[i] && (int32_t)bits < 0;
+            if (b[i]) bits <<= 1;
+        }
+    }
+    int s = cta_rank(mask[0] + mask[1] + mask[2] + mask[3], sh.mtot[P]);
+    const int32_t* vs = reinterpret_cast<const int32_t*>(sh.vseg[P]);
+#pragma unroll
+    for (int i = 0; i < IPT; ++i) {
+        val[i] = (mask[i] && s < vslots) ? vs[s] : 0;
+        s += mask[i];
+    }
+}
+
+// Frame g of the CTA's run f0.. (buffer parity P): loads frame g + 1
+// into `cur` once frame g's loads are used.  K3 (CHAIN) replaces the
+// running pixels `run` with the frame's changed values and writes them to
+// vals_out; K4 writes the frame's mask and values.
+template <int P, bool CHAIN>
+__device__ __forceinline__ void expand_step(
+        ExpandSmem& sh, const ExpandIn& in, ExpandLoad& cur, int f0, int g,
+        int nfr, int32_t run[IPT], uint8_t* __restrict__ mask_out,
+        int32_t* __restrict__ vals_out) {
+    const int blk = blockIdx.x;
+    const ExpandLoad ld = cur;
+    if (g + 1 < nfr) cur = expand_load(in, f0 + g + 1, blk);
+    bool mask[IPT];
+    int32_t val[IPT];
+    expand_frame<P>(sh, ld, in.vslots, mask, val);
+    const size_t quad = ((size_t)(f0 + g) * in.nb + blk) * THREADS
+        + threadIdx.x;
+    if (CHAIN) {
+#pragma unroll
+        for (int i = 0; i < IPT; ++i)
+            if (mask[i]) run[i] = val[i];
+        __stcs(reinterpret_cast<int4*>(vals_out) + quad,
+               make_int4(run[0], run[1], run[2], run[3]));
+    } else {
+        __stcs(reinterpret_cast<uchar4*>(mask_out) + quad,
+               make_uchar4(mask[0], mask[1], mask[2], mask[3]));
+        __stcs(reinterpret_cast<int4*>(vals_out) + quad,
+               make_int4(val[0], val[1], val[2], val[3]));
+    }
+}
+
+// Frames f0 .. f0 + nfr - 1 of block blockIdx.x, two a trip so that the
+// buffer parity is a constant.
+template <bool CHAIN>
+__device__ __forceinline__ void expand_frames(const ExpandIn& in, int f0,
+                                              int nfr, int32_t run[IPT],
+                                              uint8_t* __restrict__ mask_out,
+                                              int32_t* __restrict__ vals_out) {
+    __shared__ __align__(16) ExpandSmem sh;
+    ExpandLoad cur = expand_load(in, f0, blockIdx.x);
+    for (int g = 0; g < nfr; g += 2) {
+        expand_step<0, CHAIN>(sh, in, cur, f0, g, nfr, run, mask_out,
+                              vals_out);
+        if (g + 1 < nfr) {
+            expand_step<1, CHAIN>(sh, in, cur, f0, g + 1, nfr, run,
+                                  mask_out, vals_out);
+        }
+    }
 }
 
 // K3: expansion fused with the frame chain.  The TPU kernel carried the
 // running frame in VMEM across a sequential grid axis; CTAs here run in
-// no order, so each CTA owns one block column and loops over the frames
-// itself, with the running pixel in a register.  grid = (NB), block = 1024.
-__global__ void __launch_bounds__(IPB) k3_expand_chain(
-        const uint8_t* __restrict__ passes, const uint8_t* __restrict__ wit,
-        const uint8_t* __restrict__ raw, const int32_t* __restrict__ flags,
-        const int32_t* __restrict__ vseg, const int32_t* __restrict__ base,
-        int32_t* __restrict__ out, int nf, int nb, int vslots) {
-    __shared__ int warp_buf[32];
-    __shared__ int total_buf;
-    const int t = threadIdx.x;
-    const int blk = blockIdx.x;
-    int32_t run = base[(size_t)blk * IPB + t];
-    for (int f = 0; f < nf; ++f) {
-        const size_t row = (size_t)f * nb + blk;
-        int32_t val;
-        const bool mask = expand_item(passes, wit, raw, flags[f] != 0, vseg,
-                                      row, vslots, warp_buf, &total_buf,
-                                      &val);
-        if (mask) run = val;
-        out[row * IPB + t] = run;
-    }
+// no order, so each CTA owns one block column and walks all its frames.
+// grid = (NB), block = THREADS.
+__global__ void __launch_bounds__(THREADS, EXPAND_MIN_CTAS) k3_expand_chain(
+        ExpandIn in, const int32_t* __restrict__ base,
+        int32_t* __restrict__ out, int nf) {
+    const int4 b = __ldg(reinterpret_cast<const int4*>(base)
+                         + (size_t)blockIdx.x * THREADS + threadIdx.x);
+    int32_t run[IPT] = {b.x, b.y, b.z, b.w};
+    expand_frames<true>(in, 0, nf, run, nullptr, out);
 }
 
-// K4: expansion without the chain.  grid = (NB, F), block = 1024.
-__global__ void __launch_bounds__(IPB) k4_expand(
-        const uint8_t* __restrict__ passes, const uint8_t* __restrict__ wit,
-        const uint8_t* __restrict__ raw, const int32_t* __restrict__ flags,
-        const int32_t* __restrict__ vseg, uint8_t* __restrict__ mask_out,
-        int32_t* __restrict__ vals_out, int nb, int vslots) {
-    __shared__ int warp_buf[32];
-    __shared__ int total_buf;
-    const int f = blockIdx.y;
-    const size_t row = (size_t)f * nb + blockIdx.x;
-    int32_t val;
-    const bool mask = expand_item(passes, wit, raw, flags[f] != 0, vseg, row,
-                                  vslots, warp_buf, &total_buf, &val);
-    const size_t item = row * IPB + threadIdx.x;
-    mask_out[item] = mask ? 1 : 0;
-    vals_out[item] = val;
+// K4: expansion without the chain.  grid = (NB, frame groups of fpc),
+// block = THREADS.
+__global__ void __launch_bounds__(THREADS, EXPAND_MIN_CTAS) k4_expand(
+        ExpandIn in, uint8_t* __restrict__ mask_out,
+        int32_t* __restrict__ vals_out, int nf, int fpc) {
+    const int f0 = blockIdx.y * fpc;
+    int32_t unused[IPT];
+    expand_frames<false>(in, f0, min(fpc, nf - f0), unused, mask_out,
+                         vals_out);
 }
 
 // Grid of K1, K2, K5a and K5b: NB blocks by the frame groups of fpc.
@@ -689,20 +815,30 @@ int nbf_k3_expand_chain(const void* passes, const void* wit, const void* raw,
                         const void* flags, const void* vseg, const void* base,
                         void* out, int nf, int nb, int vslots,
                         void* stream) {
-    k3_expand_chain<<<dim3(nb), IPB, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)passes, (const uint8_t*)wit, (const uint8_t*)raw,
-        (const int32_t*)flags, (const int32_t*)vseg, (const int32_t*)base,
-        (int32_t*)out, nf, nb, vslots);
+    if (vslots < 0 || vslots > IPB || vslots % IPT)
+        return (int)cudaErrorInvalidValue;
+    const ExpandIn in = {(const uint8_t*)passes, (const uint8_t*)wit,
+                         (const uint8_t*)raw, (const int32_t*)flags,
+                         (const int32_t*)vseg, nb, vslots};
+    k3_expand_chain<<<dim3(nb), THREADS, 0, (cudaStream_t)stream>>>(
+        in, (const int32_t*)base, (int32_t*)out, nf);
     return (int)cudaGetLastError();
 }
 
 int nbf_k4_expand(const void* passes, const void* wit, const void* raw,
                   const void* flags, const void* vseg, void* mask_out,
                   void* vals_out, int nf, int nb, int vslots, void* stream) {
-    k4_expand<<<dim3(nb, nf), IPB, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)passes, (const uint8_t*)wit, (const uint8_t*)raw,
-        (const int32_t*)flags, (const int32_t*)vseg, (uint8_t*)mask_out,
-        (int32_t*)vals_out, nb, vslots);
+    if (vslots < 0 || vslots > IPB || vslots % IPT || nb < 1 || nf < 1)
+        return (int)cudaErrorInvalidValue;
+    const ExpandIn in = {(const uint8_t*)passes, (const uint8_t*)wit,
+                         (const uint8_t*)raw, (const int32_t*)flags,
+                         (const int32_t*)vseg, nb, vslots};
+    const int want = (K4_TARGET_CTAS + nb - 1) / nb;   // frame groups
+    const int groups = want < nf ? want : nf;
+    const int fpc = (nf + groups - 1) / groups;
+    k4_expand<<<dim3(nb, (nf + fpc - 1) / fpc), THREADS, 0,
+                (cudaStream_t)stream>>>(in, (uint8_t*)mask_out,
+                                        (int32_t*)vals_out, nf, fpc);
     return (int)cudaGetLastError();
 }
 

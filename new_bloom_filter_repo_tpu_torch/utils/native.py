@@ -1,19 +1,33 @@
 """ctypes binding to the native host runtime (native/nbf.cpp).
 
-Builds libnbf.so on first use (g++ via the bundled Makefile) and exposes
-xxh64, batched index-table precompute, multi-threaded frame DEFLATE/
-INFLATE, padded-row stream compaction, and the Y4M prober.  This is the
-PyTorch port's copy of ``new_bloom_filter_repo_tpu.utils.native``; both
-packages bind the same ``native/libnbf.so`` at the repository root.
-Every entry point except the xxh64 hashes has a pure-Python fallback;
-those two raise when the library cannot be loaded.
+Builds libnbf.so (g++ via the bundled Makefile) when the package is
+imported, and exposes xxh64, batched index-table precompute,
+multi-threaded frame DEFLATE/INFLATE, padded-row stream compaction, and
+the Y4M prober.  This is the PyTorch port's copy of
+``new_bloom_filter_repo_tpu.utils.native``; both packages bind the same
+``native/libnbf.so`` at the repository root.
+
+The library is not in git, so a fresh checkout builds it, and processes
+started together (test workers, say) may all find it missing.
+:func:`ensure_built` builds it once across processes (an ``flock`` on
+``build/native/libnbf.lock``), in a private directory, and renames the
+result into place, so no process of either package can open a
+half-written library; the new file is younger than its sources, so the
+JAX package's loader takes it as it is.  When the library cannot be
+built or loaded, :func:`load` raises ``RuntimeError`` with the build's
+output: the port never runs the Python paths below in its place, since
+they make other encoder choices than the library does.  Those paths
+stay for callers that force them on purpose.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import shutil
 import subprocess
+import tempfile
 import threading
 import zlib
 from typing import List, Optional, Sequence, Tuple
@@ -23,11 +37,12 @@ import numpy as np
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libnbf.so")
+_BUILD_DIR = os.path.join(_REPO_ROOT, "build", "native")
+_LIB_NAME = "libnbf.so"
+_SOURCES = ("nbf.cpp", "Makefile")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_tried = False
 _has_rans8 = False
 _has_ransc = False
 _has_rans_trials = False
@@ -39,46 +54,88 @@ _has_fast_deflate = False
 _has_huf = False
 
 
-def _build() -> bool:
-    try:
-        subprocess.run(["make", "-C", _NATIVE_DIR, "libnbf.so"],
-                       check=True, capture_output=True, timeout=120)
-        return True
-    except Exception:
-        return False
-
-
-def _stale() -> bool:
+def _stale(native_dir: str = _NATIVE_DIR) -> bool:
     """True when libnbf.so predates its sources (or is absent): a
     stale binary silently drops newer entry points AND whatever
     optional system libs (libdeflate) the build machine lacked, so the
     loader rebuilds instead of trusting it."""
     try:
-        so_m = os.path.getmtime(_LIB_PATH)
+        so_m = os.path.getmtime(os.path.join(native_dir, _LIB_NAME))
     except OSError:
         return True
-    for src in ("nbf.cpp", "Makefile"):
+    for src in _SOURCES:
         try:
-            if os.path.getmtime(os.path.join(_NATIVE_DIR, src)) > so_m:
+            if os.path.getmtime(os.path.join(native_dir, src)) > so_m:
                 return True
         except OSError:
             pass
     return False
 
 
-def load() -> Optional[ctypes.CDLL]:
-    """Load (building if needed) the native library, or None."""
-    global _lib, _tried
-    with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        if _stale() and not _build() and not os.path.exists(_LIB_PATH):
-            return None
+def ensure_built(native_dir: str = _NATIVE_DIR,
+                 build_dir: str = _BUILD_DIR) -> bool:
+    """Build ``native_dir/libnbf.so`` if it is absent or older than its
+    sources; True when this call compiled it.
+
+    Processes that call this together build once: each takes an
+    exclusive ``flock`` on ``build_dir/libnbf.lock`` and checks the
+    library again under it.  The build copies the sources into a fresh
+    directory under ``build_dir`` and runs ``make libnbf.so`` there (the
+    Makefile stays the one source of the flags), then renames the
+    library onto ``native_dir/libnbf.so``: atomic on one filesystem, so
+    a reader sees the old file or the whole new one.  Raises
+    ``RuntimeError`` with make's output when the build fails."""
+    if not _stale(native_dir):
+        return False
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, "libnbf.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _stale(native_dir):
+            return False
+        work = tempfile.mkdtemp(dir=build_dir)
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
-            return None
+            for src in _SOURCES:
+                shutil.copy(os.path.join(native_dir, src), work)
+            try:
+                proc = subprocess.run(["make", "-C", work, _LIB_NAME],
+                                      capture_output=True, text=True,
+                                      timeout=600)
+            except (OSError, subprocess.TimeoutExpired) as exc:
+                raise RuntimeError(f"could not build {_LIB_NAME} from "
+                                   f"{native_dir}: {exc}") from exc
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"building {_LIB_NAME} from {native_dir} failed "
+                    f"(make exit {proc.returncode}):\n{proc.stdout}"
+                    f"{proc.stderr}")
+            os.replace(os.path.join(work, _LIB_NAME),
+                       os.path.join(native_dir, _LIB_NAME))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    return True
+
+
+def open_library(native_dir: str = _NATIVE_DIR,
+                 build_dir: str = _BUILD_DIR) -> ctypes.CDLL:
+    """``native_dir/libnbf.so``, built first if needed
+    (:func:`ensure_built`); raises ``RuntimeError`` when it cannot be
+    built or loaded."""
+    ensure_built(native_dir, build_dir)
+    path = os.path.join(native_dir, _LIB_NAME)
+    try:
+        return ctypes.CDLL(path)
+    except OSError as exc:
+        raise RuntimeError(f"cannot load {path}: {exc}") from exc
+
+
+def load() -> ctypes.CDLL:
+    """The native library, built if needed; raises ``RuntimeError``
+    when it cannot be built or loaded (never returns None)."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = open_library()
         u64, u32, i32 = ctypes.c_uint64, ctypes.c_uint32, ctypes.c_int
         p8 = ctypes.POINTER(ctypes.c_uint8)
         pp8 = ctypes.POINTER(p8)
@@ -202,19 +259,8 @@ def load() -> Optional[ctypes.CDLL]:
 
 
 def available() -> bool:
+    """True; raises like :func:`load` when the library cannot be had."""
     return load() is not None
-
-
-def _require() -> ctypes.CDLL:
-    """The loaded library, for the entry points that have no Python
-    fallback in this package (the xxh64 hashes: the JAX package's
-    fallback runs on its device lanes)."""
-    lib = load()
-    if lib is None:
-        raise RuntimeError(
-            f"native library {_LIB_PATH} could not be built or loaded "
-            f"(run `make -C {_NATIVE_DIR} libnbf.so`)")
-    return lib
 
 
 def _as_u8p(arr: np.ndarray):
@@ -226,7 +272,7 @@ def _as_u8p(arr: np.ndarray):
 # ---------------------------------------------------------------------------
 
 def xxh64(data: bytes, seed: int = 0) -> int:
-    lib = _require()
+    lib = load()
     buf = np.frombuffer(data, dtype=np.uint8) if data else np.zeros(
         1, np.uint8)
     return int(lib.nbf_xxh64(_as_u8p(buf), len(data), seed))
@@ -235,7 +281,7 @@ def xxh64(data: bytes, seed: int = 0) -> int:
 def xxh64_index_tables(n: int, h1_seed: int, h2_seed: int, act_seed: int,
                        threads: int = 0):
     """(h1, h2, act) uint64[n] hashes of str(i) — host-side precompute."""
-    lib = _require()
+    lib = load()
     h1 = np.empty(n, np.uint64)
     h2 = np.empty(n, np.uint64)
     act = np.empty(n, np.uint64)

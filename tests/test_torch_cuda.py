@@ -121,6 +121,53 @@ def test_k5_kernels_equal_twins_and_k1_k2(dev, flagged):
     torch.cuda.synchronize()
 
 
+def expand_edge_inputs(f, nb, vh, dens, flagged, seed=0):
+    """K3/K4 inputs made directly, as numpy (passes, wit, raw, flags,
+    vseg, base): frame i passes items at density ``dens[i % len(dens)]``
+    (1: every item, 0: none); block 0 has every witness bit set, so with
+    every item passing its rank-1023 item reads the last bit; the
+    ``flagged`` frames take a raw mask of density 0.4 (unflagged frames
+    carry one too, which they must ignore); ``vh`` may leave fewer value
+    slots than changed items."""
+    rng = np.random.default_rng(seed)
+    d = np.resize(np.asarray(dens, np.float64), f).reshape(-1, 1, 1)
+    passes = (rng.random((f, nb, IPB)) < d).astype(np.uint8)
+    wit = rng.integers(0, 256, (f, nb, IPB // 8), dtype=np.uint8)
+    wit[:, 0] = 0xFF
+    flags = np.zeros(f, np.int32)
+    flags[list(flagged)] = 1
+    raw = (rng.random((f, nb, IPB)) < 0.4).astype(np.uint8)
+    vseg = rng.integers(0, 1 << 24, (f, nb, vh * 32), dtype=np.int32)
+    base = rng.integers(0, 1 << 24, (nb, IPB), dtype=np.int32)
+    return passes, wit, raw, flags, vseg, base
+
+
+# (F, NB, vh, pass densities by frame, flagged frames): all / none /
+# half / few passing; F = 1 and 17 (odd: the last trip of the kernels'
+# unrolled frame loop runs one frame); NB = 1 and 2033; vh = 4 and 1 leave
+# fewer value slots than changed items.
+CARD_EDGES = {
+    "f17_nb2033_vh4": (17, 2033, 4, [1.0, 0.0, 0.5, 0.03],
+                       range(1, 17, 2)),
+    "f1_nb2033_vh32": (1, 2033, 32, [1.0], []),
+    "f17_nb1_vh32": (17, 1, 32, [1.0, 0.5, 0.0], range(0, 17, 3)),
+    "f1_nb1_vh1": (1, 1, 1, [1.0], []),
+}
+
+
+@pytest.mark.parametrize("edge", sorted(CARD_EDGES))
+def test_expand_kernels_equal_twins_on_edge_inputs(dev, edge):
+    passes, wit, raw, flags, vseg, base = (
+        torch.from_numpy(a).to(dev)
+        for a in expand_edge_inputs(*CARD_EDGES[edge], seed=3))
+    vh = CARD_EDGES[edge][2]
+    exp = (passes, wit, raw, flags, vseg)
+    same(bk.blocked_expand(*exp, vh=vh), bk.blocked_expand_ref(*exp, vh=vh))
+    same(bk.blocked_expand_chain(*exp, base, vh=vh),
+         bk.blocked_expand_chain_ref(*exp, base, vh=vh))
+    torch.cuda.synchronize()
+
+
 def test_devices_mesh_stream_equals_one_device(dev, tmp_path):
     frames = generate_frames(16, 96, 80, seed=0, **SUITE["pan"])
     one = str(tmp_path / "one.bfvc")

@@ -16,6 +16,7 @@ from new_bloom_filter_repo_tpu.models import blocked_pipeline as jbp
 from new_bloom_filter_repo_tpu.ops.pallas import blocked as jbk
 from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as tbp
 from new_bloom_filter_repo_tpu_torch.ops import blocked as tbk
+from test_torch_cuda import expand_edge_inputs
 
 IPB = 1024
 
@@ -184,6 +185,47 @@ def test_k4_expand_matches_pallas(case, flagged):
     np.testing.assert_array_equal(n(tv), n(jv))
     if not flagged:
         np.testing.assert_array_equal(n(tm), case["bits"])
+
+
+# K3/K4 on inputs made directly (test_torch_cuda.expand_edge_inputs),
+# at sizes Pallas interpret mode runs quickly, NB a multiple of the
+# Pallas tile of 8 blocks (NB = 1 and 2033 run on the card, against the
+# twins): (F, NB, vh, pass densities by frame, flagged frames).
+EXPAND_EDGES = {
+    "all_pass_all_bits": (2, 8, 32, [1.0], []),
+    "none_pass": (2, 8, 4, [0.0], []),
+    "slots_overflow_vh1": (3, 8, 1, [0.6, 0.9, 0.3], []),
+    "alternating_flags": (4, 8, 4, [0.5], [1, 3]),
+    "f1": (1, 8, 8, [0.5], []),
+    "f17": (17, 8, 4, [1.0, 0.0, 0.5, 0.05], range(1, 17, 2)),
+}
+
+
+@pytest.mark.parametrize("edge", sorted(EXPAND_EDGES))
+def test_k3_k4_edge_inputs_match_pallas(edge):
+    f, nb, vh, dens, flagged = EXPAND_EDGES[edge]
+    passes, wit, raw, flags, vseg, base = expand_edge_inputs(
+        f, nb, vh, dens, flagged, seed=sorted(EXPAND_EDGES).index(edge))
+    jm, jv = jbk.blocked_expand(passes, wit, raw, flags, vseg, vh=vh)
+    tm, tv = tbk.blocked_expand(t(passes), t(wit), t(raw), t(flags),
+                                t(vseg), vh=vh)
+    np.testing.assert_array_equal(n(tm), n(jm))
+    np.testing.assert_array_equal(n(tv), n(jv))
+    want = jbk.blocked_expand_chain(passes, wit, raw, flags, vseg, base,
+                                    vh=vh)
+    got = tbk.blocked_expand_chain(t(passes), t(wit), t(raw), t(flags),
+                                   t(vseg), t(base), vh=vh)
+    np.testing.assert_array_equal(n(got), n(want))
+    # the inputs are the edges they are named for
+    changed = n(tm).sum(axis=2)
+    if edge == "all_pass_all_bits":
+        assert (changed[:, 0] == IPB).all()       # rank 1023 reads bit 1023
+    if edge == "none_pass":
+        assert (changed == 0).all()
+    if edge == "slots_overflow_vh1":
+        assert (changed > vh * 32).any()
+        past = np.cumsum(n(tm), axis=2) > vh * 32
+        assert (n(tv)[past] == 0).all()
 
 
 def test_words_bits_helpers_match_jax():
