@@ -7,7 +7,8 @@
 Drives the port's main path, ``ImprovedVideoCompressor(device="cuda")``
 (blocked profile, exact, motion on), through ``compress_video`` and
 ``decompress_video`` at 1080p, its multi-device paths (the mesh dry
-runs and ``devices=``) and its other profiles and modes, after building
+runs and ``devices=``), its other profiles and modes and its file paths
+(the command line, Y4M / raw YUV / EXR in and out), after building
 the hand-written Hopper kernels K1-K5b from
 ``new_bloom_filter_repo_tpu_torch/ops/csrc`` and holding each against
 its plain PyTorch twin on the card.  Phases:
@@ -67,18 +68,50 @@ its plain PyTorch twin on the card.  Phases:
     decodes the golden text and binary fixtures and re-encodes the
     binary one byte for byte; a 1920x1080 binary array at density 0.05
     round-trips through ``BloomFilterCompressor(device="cuda")``; the
-    bloom_core and median torch ops timed at 1080p.
+    bloom_core and median torch ops timed at 1080p;
+12. stress of the kernels whose shared-memory buffers are rewritten
+    within a launch (K1 and K5a double-buffer the sub-filter, K3 and K4
+    double-buffer by frame parity): 60 seeded mixes a kernel (NB 64 to
+    513, F of 1, 2, 15, 16 and 17, m across 1 and 16..384, change and
+    pass densities from none to every item, alternating flagged frames,
+    vh of 1, 4 and 16 with more changes than slots), each launched 320
+    times: a round launches all 60 back to back behind a spin of the
+    card, in a new order, and then holds every launch to its twin's
+    outputs with tolerance 0; 200 rounds on one stream, 80 beside a
+    second stream busy with matrix products and a streaming add, 40
+    with the launches split over two streams.  A launch that differs
+    fails the run with the mix's seed and shape.  This raises the odds
+    of seeing a rare race; it does not prove there is none;
+13. files in and out, on the card, through the port's command line with
+    no ``--device``: (a) the phase-3 clip (31 frames) and 16 frames of
+    the phase-4 clip written as 4:2:0 Y4M files, ``compress`` then
+    ``decompress`` to a Y4M file byte-identical to the input, with each
+    direction's fps and the time its file reads and writes took; (b) 8
+    frames of the pan clip as raw I420 and as YV12 through
+    ``process-yuv`` (the planar profile) and ``decompress`` to a
+    byte-identical ``.yuv``; (c) 4 float32 frames with NaNs written as
+    EXR (zip) into a directory, read through
+    ``extract_frames_from_video``, round trip ``tobytes``-exact through
+    the byte view, and ``golden_piz.exr`` against its expected array;
+    (d) ``synthetic``, ``analyze`` and ``analyze-stream --json`` return 0
+    and ``verify_harness.test_true_lossless`` passes on (a)'s static
+    file; (e) ``profiling.measure_host_stages`` on the bench clip's
+    first chunk, and a compress + decompress of 16 bench frames under
+    ``profiling.trace``, whose Chrome trace gives the card's busy share
+    (kernel and copy time over the wall).  None of it needs cv2, PIL or
+    matplotlib.
 
 Phases 8-11 time each round trip once as it is (the path's fps) and
 then once more under a stage timer, which synchronises the card around
 its device stages, for the breakdown of where the time goes.
 
-Phases 3, 4, 6, 7, 8 and 9 are the paths of the kernels: every
-kernel's launch count is set to 0 just before each and read just
+Phases 3, 4, 6, 7, 8, 9 and 13 (a)-(c) are the paths of the kernels:
+every kernel's launch count is set to 0 just before each and read just
 after, and a kernel its path must launch that it did not fails the run
 (K1-K3 on phase 3; K1, K2 and K4 on phase 4; K5a, K5b and K4 on phase
-6; K1-K4 on phase 7; K1, K2 and K3 or K4 on phase 8; K1-K3 on phase
-9).  Every phase that fails raises; nothing falls back to the CPU.
+6; K1-K4 on phase 7; K1, K2 and K3 or K4 on phases 8 and 13 (a); K1-K3
+on phases 9 and 13 (c); K1 and K2 on phase 13 (b)).  Every phase that
+fails raises; nothing falls back to the CPU.
 The second-to-last lines are the
 per-kernel JSON (launches summed over the path runs) and the card's
 name and power limit; the last line is ``{"ok": true, "device":
@@ -94,6 +127,7 @@ times that checkout's kernels the same way, in the same call.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import re
@@ -1241,6 +1275,383 @@ def time_bloom_ops(dev, arr, frame, card):
     return ms
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: stress of the shared-memory ordering of K1, K5a, K3 and K4
+# ---------------------------------------------------------------------------
+
+# Shapes of the stress pool: every pair (NB, F).  NB from 64 to 513
+# blocks, so many CTAs run at once and the twins stay cheap; F odd and
+# even, so a launch ends on either parity of the kernels' double buffers.
+STRESS_NB = (64, 65, 80, 96, 128, 160, 200, 256, 257, 320, 384, 513)
+STRESS_F = (1, 2, 15, 16, 17)
+STRESS_VH = (1, 4, 16)        # 32 to 512 value slots: fewer than changes
+STRESS_DENS = (1.0, 0.0, 0.5, 0.03, 0.3)
+STRESS_SPIN = 10_000_000      # ~5 ms of card time to queue a batch behind
+STRESS_KERNELS = ("blocked_encode_h", "blocked_encode",
+                  "blocked_expand_chain", "blocked_expand")
+
+
+def stress_pool(dev, seed, nbs=STRESS_NB, fs=STRESS_F):
+    """{wrapper name: [(label, kernel call, twin's outputs)]} over every
+    (NB, F) of ``nbs`` x ``fs``, mix i made from ``seed + i``.
+
+    K1 and K5a (on the ``_frame_mod_tables`` of K1's inputs) take
+    :func:`edge_mix_args`: random sub-filter widths m from {1, 16..384},
+    floor k 0..12, change densities 0.1-30 %, and here also frames with
+    no and with every item changed, and vh of 1, 4 and 16 (32-512 value
+    slots: fewer than the changes).  K3 and K4 take
+    :func:`expand_edge_inputs`: pass densities from every item to none by
+    frame, alternating flagged frames on two mixes of three, the same
+    vh.  The twins run once per mix, here."""
+    from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as bp
+    from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+    from new_bloom_filter_repo_tpu_torch.ops.hashtables import blocked_tables
+
+    ms = [1] + list(range(16, 385))
+    tab = blocked_tables(max(nbs) * 1024, dev)
+    pool = {name: [] for name in STRESS_KERNELS}
+    for i, (nb, f) in enumerate(itertools.product(nbs, fs)):
+        rng = np.random.default_rng(seed + i)
+        vh = STRESS_VH[i % len(STRESS_VH)]
+        label = f"seed {seed + i}: F={f} NB={nb} vh={vh}"
+        enc, kw = edge_mix_args(tab, rng.choice(ms, f), dev, seed=seed + i,
+                                nb=nb)
+        kw["vh"] = vh
+        bits = enc[0]
+        for j in range(f):
+            if (i + j) % 7 == 0:
+                bits[j] = 1
+            elif (i + j) % 7 == 3:
+                bits[j] = 0
+        _, h1, h2, ahi, alo, vals, m, thi, tlo, fk = enc
+        a, b, act = bp._frame_mod_tables(h1, h2, ahi, alo, m, thi, tlo)
+        enc5 = (bits, a, b, act, vals, m, fk)
+        dens = np.roll(STRESS_DENS, i)
+        flagged = range(i % 2, f, 2) if i % 3 else []
+        *exp, base = expand_edge_inputs(f, nb, vh, dens, flagged, dev,
+                                        seed=seed + i)
+        for name, kern, twin in (
+                ("blocked_encode_h",
+                 lambda e=enc, k=kw: bk.blocked_encode_h(*e, **k),
+                 bk.blocked_encode_h_ref(*enc, **kw)),
+                ("blocked_encode",
+                 lambda e=enc5, k=kw: bk.blocked_encode(*e, **k),
+                 bk.blocked_encode_ref(*enc5, **kw)),
+                ("blocked_expand_chain",
+                 lambda e=exp, b_=base, v=vh: bk.blocked_expand_chain(
+                     *e, b_, vh=v),
+                 bk.blocked_expand_chain_ref(*exp, base, vh=vh)),
+                ("blocked_expand",
+                 lambda e=exp, v=vh: bk.blocked_expand(*e, vh=v),
+                 bk.blocked_expand_ref(*exp, vh=vh))):
+            want = twin if isinstance(twin, tuple) else (twin,)
+            pool[name].append((label, kern, want))
+    return pool
+
+
+def stress_round(cases, order, mode, side):
+    """Launch ``cases`` in ``order`` back to back behind a spin of the
+    card, then compare every launch with its twin's outputs; returns the
+    labels of the launches that differed.  ``mode``: "quiet" (one
+    stream), "busy" (``side``, a second stream, runs matrix products and
+    a streaming add meanwhile, so the SMs are shared with unrelated
+    kernels) or "split" (the launches alternate between the current
+    stream and ``side``, so two of the kernels under test share the
+    SMs)."""
+    import torch
+
+    main = torch.cuda.current_stream()
+    torch.cuda._sleep(STRESS_SPIN)
+    side.stream.wait_stream(main)            # starts when the spin ends
+    if mode == "busy":
+        with torch.cuda.stream(side.stream):
+            for _ in range(8):
+                torch.mm(side.a, side.a, out=side.c)
+                side.x.add_(1)
+    outs = []
+    for n, i in enumerate(order):
+        if mode == "split" and n % 2:
+            with torch.cuda.stream(side.stream):
+                out = cases[i][1]()
+        else:
+            out = cases[i][1]()
+        outs.append(out if isinstance(out, tuple) else (out,))
+    main.wait_stream(side.stream)
+    bad = []
+    for i, got in zip(order, outs):
+        want = cases[i][2]
+        if len(got) != len(want) or any(
+                g.shape != w.shape or g.dtype != w.dtype
+                for g, w in zip(got, want)):
+            raise AssertionError(f"{cases[i][0]}: output shapes or dtypes "
+                                 f"differ from the twin's")
+        bad.append(torch.stack([(g != w).any() for g, w in zip(got, want)])
+                   .any())
+    bad = torch.stack(bad).cpu().numpy()
+    return [cases[i][0] for i, b in zip(order, bad) if b]
+
+
+class StressSide:
+    """The second stream of the stress phase and its unrelated work."""
+
+    def __init__(self, dev):
+        import torch
+
+        self.stream = torch.cuda.Stream(dev)
+        self.a = torch.randn((2048, 2048), device=dev)
+        self.c = torch.empty_like(self.a)
+        self.x = torch.zeros(16 << 20, dtype=torch.int32, device=dev)
+
+
+def phase_stress(dev, rounds=(("quiet", 200), ("busy", 80), ("split", 40)),
+                 seed=1000, nbs=STRESS_NB, fs=STRESS_F):
+    """Phase 12.  K1, K5a, K3 and K4 launched many thousands of times
+    over the stress pool, every launch held to its plain twin with
+    tolerance 0.  Each round launches every mix of one kernel, in a new
+    random order, back to back behind a spin of the card, and compares
+    afterwards.  A launch that differs raises with the mix's seed and
+    shape.  This raises the odds of seeing a rare shared-memory race; it
+    does not prove there is none.  Returns {wrapper name: launches}."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+
+    t0 = time.perf_counter()
+    pool = stress_pool(dev, seed, nbs, fs)
+    side = StressSide(dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    bk.reset_launches()
+    for name, cases in pool.items():
+        for mode, count in rounds:
+            for r in range(count):
+                order = rng.permutation(len(cases))
+                bad = stress_round(cases, order, mode, side)
+                if bad:
+                    raise AssertionError(
+                        f"stress: {KERNELS[name][0]} {name} differed from "
+                        f"its twin in {mode} round {r} on {len(bad)} of "
+                        f"{len(cases)} launches: {bad[:8]}")
+    torch.cuda.synchronize()
+    launched = bk.launches()
+    wall = time.perf_counter() - t1
+    per_round = ", ".join(f"{c} {m}" for m, c in rounds)
+    log(f"  {len(next(iter(pool.values())))} mixes a kernel (NB {min(nbs)}.."
+        f"{max(nbs)}, F {list(fs)}, vh {list(STRESS_VH)}), rounds: "
+        f"{per_round}; pool and twins {t1 - t0:.2f} s, launches and "
+        f"compares {wall:.2f} s")
+    for name in pool:
+        log(f"  {KERNELS[name][0]} {name}: {launched[name]} launches, 0 "
+            f"differed from the twin")
+    return {name: launched[name] for name in pool}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: files in and out, the CLI, the harness and the tools
+# ---------------------------------------------------------------------------
+
+def planes_of(frames):
+    """(y, u, v) native planes of YUVFrames."""
+    return [(f.yuv_info["y_plane"], f.yuv_info["u_plane"],
+             f.yuv_info["v_plane"]) for f in frames]
+
+
+def same_file(a, b) -> bool:
+    with open(a, "rb") as x, open(b, "rb") as y:
+        return x.read() == y.read()
+
+
+def io_timer():
+    """Stage timer of the file reads and writes under the CLI."""
+    from new_bloom_filter_repo_tpu_torch.utils import container, videoio
+
+    return StageTimer([(videoio, "read_y4m"), (videoio, "write_y4m"),
+                       (videoio, "read_raw_yuv"), (videoio, "write_raw_yuv"),
+                       (container, "read_bfvc"), (container, "write_bfvc")])
+
+
+def cli_ok(argv):
+    """Run the port's CLI in this process; raises unless it returns 0."""
+    from new_bloom_filter_repo_tpu_torch import cli
+
+    rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+
+
+def cli_file_trip(label, src, n_frames, card, compress_args):
+    """``compress_args`` (a CLI compress or process-yuv command) from
+    ``src`` to a .bfvc beside it, then ``decompress`` to a file of
+    ``src``'s extension, no ``--device``: the output file must equal
+    ``src`` byte for byte.  Prints each direction's fps and the time its
+    file reads and writes took.  Returns the .bfvc's path."""
+    import torch
+
+    stem, ext = os.path.splitext(src)
+    bfvc = stem + ".bfvc"
+    back = stem + "_back" + ext
+    timers = []
+    walls = []
+    for argv in (compress_args + [src, bfvc], ["decompress", bfvc, back]):
+        with io_timer() as st:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli_ok(argv)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        timers.append(st)
+    if not same_file(src, back):
+        raise AssertionError(f"{label}: {back} differs from {src}")
+    io = [sum(st.seconds.values()) for st in timers]
+    log(f"  {label}: {n_frames} frames, {os.path.getsize(src)} bytes in, "
+        f"{os.path.getsize(bfvc)} bytes of .bfvc, output file byte-identical "
+        f"to the input; compress {n_frames / walls[0]:.3f} fps (file reads "
+        f"and writes {io[0] * 1e3:.1f} ms of {walls[0] * 1e3:.1f} ms), "
+        f"decompress {n_frames / walls[1]:.3f} fps ({io[1] * 1e3:.1f} ms of "
+        f"{walls[1] * 1e3:.1f} ms) ({card}); records {count_records(bfvc)}")
+    return bfvc
+
+
+def trace_busy_share(trace_dir, wall_s):
+    """Device time of the Chrome trace in ``trace_dir`` by category
+    (kernels, copies, memsets) over ``wall_s``; raises when the trace
+    holds no kernel."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"expected one trace file, found {files}")
+    path = os.path.join(trace_dir, files[0])
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    us = {}
+    for ev in events:
+        cat = str(ev.get("cat", "")).lower()
+        if ev.get("ph") == "X" and cat in ("kernel", "gpu_memcpy",
+                                           "gpu_memset"):
+            us[cat] = us.get(cat, 0.0) + float(ev.get("dur", 0))
+    if not us.get("kernel"):
+        raise AssertionError(f"the trace {path} holds no CUDA kernel")
+    return path, len(events), {k: v / 1e6 / wall_s for k, v in us.items()}
+
+
+def phase_files(dev, bench, pan, f32_frames, tmp, card):
+    """Phase 13 (a)-(e); returns the launches of (a)-(c)."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch import verify_harness
+    from new_bloom_filter_repo_tpu_torch.models.video import (
+        ImprovedVideoCompressor)
+    from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+    from new_bloom_filter_repo_tpu_torch.utils import exr, profiling, videoio
+
+    runs = []
+    # (a) Y4M through compress / decompress.  The static clip's records
+    # decode on the card (K2, K3).  The pan clip's 4:2:0 chroma moves 1.5
+    # px a frame, so its 444 view takes keyframes and host residual
+    # records (type 16), found by host trials at about 0.3 fps: 16 of
+    # its frames, to keep the phase short.
+    bk.reset_launches()
+    y4m, bfvc = {}, {}
+    for name, clip in (("static", bench), ("pan", pan[:16])):
+        y4m[name] = os.path.join(tmp, f"{name}.y4m")
+        videoio.write_y4m(y4m[name], planes_of(i420_from(clip)), W, H)
+        bfvc[name] = cli_file_trip(
+            f"(a) {name} 1080p 4:2:0 Y4M, compress / decompress", y4m[name],
+            len(clip), card, ["compress"])
+    launches = path_launches("Y4M files", ["blocked_encode_h",
+                                           "blocked_membership_h"])
+    if launches["blocked_expand_chain"] + launches["blocked_expand"] == 0:
+        raise AssertionError("Y4M decode launched neither K3 nor K4")
+    runs.append(launches)
+
+    # (b) raw planar YUV through process-yuv (profile="planar")
+    bk.reset_launches()
+    clip = i420_from(pan[:8])
+    for fmt in ("I420", "YV12"):
+        raw = os.path.join(tmp, f"{fmt}.yuv")
+        videoio.write_raw_yuv(raw, clip, fmt)
+        cli_file_trip(f"(b) pan 1080p raw {fmt}, process-yuv / decompress",
+                      raw, len(clip), card,
+                      ["process-yuv", "--width", str(W), "--height", str(H),
+                       "--format", fmt])
+    runs.append(path_launches("raw YUV files", ["blocked_encode_h",
+                                                "blocked_membership_h"]))
+
+    # (c) a directory of float32 EXR frames (zip) through the byte view
+    bk.reset_launches()
+    exr_dir = os.path.join(tmp, "exr")
+    os.makedirs(exr_dir)
+    t0 = time.perf_counter()
+    for i, f in enumerate(f32_frames):
+        exr.write_exr(os.path.join(exr_dir, f"frame{i:03d}.exr"), f,
+                      compression="zip")
+    t1 = time.perf_counter()
+    comp = ImprovedVideoCompressor()
+    loaded = comp.extract_frames_from_video(exr_dir)
+    t2 = time.perf_counter()
+    if len(loaded) != len(f32_frames) or not all(
+            same_bits(a, b) for a, b in zip(loaded, f32_frames)):
+        raise AssertionError("EXR frames read back differ from those written")
+    log(f"  (c) {len(loaded)} float32 1080p frames with NaNs as EXR (zip): "
+        f"written in {(t1 - t0) * 1e3:.1f} ms, read in "
+        f"{(t2 - t1) * 1e3:.1f} ms (host), bit patterns equal")
+    round_trip("(c) EXR frames, byte view", loaded, None,
+               os.path.join(tmp, "exr.bfvc"), card)
+    runs.append(path_launches("EXR frames", ["blocked_encode_h",
+                                             "blocked_membership_h",
+                                             "blocked_expand_chain"]))
+    fix = os.path.join(REPO, "tests", "fixtures")
+    piz = exr.read_exr(os.path.join(fix, "golden_piz.exr"))
+    if not np.array_equal(piz.view(np.uint16),
+                          np.load(os.path.join(fix, "golden_piz_expect.npy"))):
+        raise AssertionError("golden_piz.exr decoded wrong")
+    log(f"  (c) golden_piz.exr {piz.shape} {piz.dtype} equals "
+        f"golden_piz_expect.npy")
+
+    # (d) the other subcommands and the harness
+    cli_ok(["synthetic", os.path.join(tmp, "synthetic"), "--frames", "16"])
+    cli_ok(["analyze", os.path.join(tmp, "analyze"), "--frames", "8",
+            "--width", "320", "--height", "240", "--noise-levels", "0", "2"])
+    cli_ok(["analyze-stream", bfvc["pan"], "--json"])
+    res = verify_harness.test_true_lossless(y4m["static"], ("YUV",),
+                                            max_frames=8)
+    if not res["all_passed"] or not res["YUV"].get("yuv_byte_exact"):
+        raise AssertionError(f"verify_harness failed on the card: {res}")
+    log("  (d) synthetic, analyze, analyze-stream returned 0; "
+        "verify_harness.test_true_lossless passed on 8 frames of static.y4m "
+        "(YUV, raw planes byte-exact)")
+
+    # (e) stage times and a profiler trace of the main path
+    clip = bench[:16]
+    enc_s, dec_s, detail = profiling.measure_host_stages(clip)
+    log(f"  (e) measure_host_stages, 15-frame chunk at 1080p ({card}): host "
+        f"stages encode {enc_s * 1e3:.3f} ms/frame, decode "
+        f"{dec_s * 1e3:.3f} ms/frame; ms/frame by stage {detail}")
+    trace_dir = os.path.join(tmp, "trace")
+    path = os.path.join(tmp, "traced.bfvc")
+    comp = ImprovedVideoCompressor()
+    comp.compress_video(clip, path)          # warm: tables, pinned buffers
+    torch.cuda.synchronize()
+    with profiling.trace(trace_dir):
+        t0 = time.perf_counter()
+        comp.compress_video(clip, path)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec = comp.decompress_video(path)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    if not all(same_bits(a, b) for a, b in zip(clip, dec)):
+        raise AssertionError("traced round trip is not bit-exact")
+    tpath, n_events, share = trace_busy_share(trace_dir, t2 - t0)
+    log(f"  (e) trace of compress + decompress of 16 bench frames: "
+        f"{os.path.basename(tpath)}, {os.path.getsize(tpath)} bytes, "
+        f"{n_events} events; under the profiler compress "
+        f"{len(clip) / (t1 - t0):.3f} fps, decompress "
+        f"{len(clip) / (t2 - t1):.3f} fps; device busy share of the wall "
+        f"{t2 - t0:.3f} s: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(share.items()))
+        + f" ({card})")
+    return {n: sum(r[n] for r in runs) for n in KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -1308,6 +1719,12 @@ def main() -> int:
         phase_bfv2(dev, bench[:16], tmp, smi)
         log(f"phase 11 near-lossless, keyframe mode, binary codecs ({smi}):")
         phase_near_lossless(dev, bench[:16], tmp, smi)
+        log(f"phase 12 stress of K1, K5a, K3, K4 against their twins "
+            f"({smi}):")
+        phase_stress(dev)
+        log(f"phase 13 files, the CLI, the harness and the tools ({smi}):")
+        runs.append(phase_files(dev, bench, pan, byte_clips[1][1][:4], tmp,
+                                smi))
     launches = {n: sum(r[n] for r in runs) for n in KERNELS}
 
     kernels = []

@@ -25,9 +25,14 @@ devices of one process, with the same bytes as one device.  The
 ``.bfvc`` bytes are the reference's: for the same frames and options
 both packages write the same file, and each decodes the other's.
 
-Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-Queue 1 item: file export on decode (item 12).  Meshes across processes
-(item 11) have no entry point here.
+Files go in through :meth:`ImprovedVideoCompressor.extract_frames_from_video`
+(Y4M, raw planar YUV, EXR, and any container cv2 reads) and come out
+through ``decompress_video(output_path=...)``: ``.yuv`` and ``.y4m``
+are written from the decoded native planes, byte for byte the input
+file's; any other extension is a cv2 preview.  Colour conversions on
+those paths run ``ops/color.py`` on the compressor's device (integer
+arithmetic: a card and the CPU give the same bytes).  Meshes across
+processes have no entry point here.
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ from new_bloom_filter_repo_tpu_torch.parallel.mesh import (
     auto_mesh,
     home_device,
 )
-from new_bloom_filter_repo_tpu_torch.utils import container
+from new_bloom_filter_repo_tpu_torch.utils import container, videoio
 from new_bloom_filter_repo_tpu_torch.utils.yuvframe import (
     YUVFrame,
     unwrap,
@@ -86,6 +91,14 @@ def add_yuv_info_to_frame(frame) -> YUVFrame:
     if isinstance(frame, YUVFrame):
         return frame
     return YUVFrame(np.asarray(frame))
+
+
+def default_color_space(video_path: str) -> str:
+    """Working color space when the caller doesn't specify one: YUV for
+    native-YUV containers (.y4m/.yuv) so compress -> decompress
+    reproduces the file bytes exactly, else BGR."""
+    return ("YUV" if video_path.lower().endswith((".y4m", ".yuv"))
+            else "BGR")
 
 
 def verify_lossless(original_frames, decompressed_frames,
@@ -1020,10 +1033,6 @@ class ImprovedVideoCompressor:
                          metadata: Dict = None) -> List[np.ndarray]:
         """Decompress from a .bfvc file or a raw payload list."""
         start = time.time()
-        if output_path:
-            raise NotImplementedError(
-                "file export on decode (utils/videoio) is not ported to the "
-                "PyTorch package yet (ROADMAP Queue 1 item 12)")
         magic = container.MAGIC_FIXED
         if input_path:
             if not os.path.exists(input_path):
@@ -1033,12 +1042,37 @@ class ImprovedVideoCompressor:
             raise ValueError("No compressed frames provided")
         frames = self._decode_payloads(compressed_frames,
                                        typed=(magic == container.MAGIC_BLOOM))
+        if output_path:
+            low = output_path.lower()
+            if low.endswith(".yuv"):
+                # byte-exact raw planar export (native planes)
+                videoio.write_raw_yuv(output_path, frames)
+            elif low.endswith(".y4m"):
+                infos = [yuv_info_of(f) for f in frames]
+                if any(i is None for i in infos):
+                    raise ValueError(
+                        "y4m export requires YUV frames — compress with "
+                        "--color-space YUV (the default for .y4m/.yuv "
+                        "inputs) to round-trip back to Y4M")
+                fmt = infos[0].get("format", "444")
+                cs = {"I420": "420jpeg", "YV12": "420jpeg",
+                      "YUV422": "422", "YUV444": "444"}.get(fmt, fmt)
+                h, w = np.asarray(infos[0]["y_plane"]).shape
+                videoio.write_y4m(
+                    output_path,
+                    [(np.asarray(i["y_plane"]), np.asarray(i["u_plane"]),
+                      np.asarray(i["v_plane"])) for i in infos],
+                    w, h, colorspace=cs)
+            else:
+                self.save_frames_as_video(frames, output_path)
         if self.verbose:
             dt = time.time() - start
             print(f"Decompressed {len(frames)} frames in {dt:.2f} seconds")
+            if dt > 0:
+                print(f"Frames Per Second: {len(frames) / dt:.2f}")
         return frames
 
-    # -- verification --------------------------------------------------------
+    # -- verification & I/O -------------------------------------------------
 
     def verify_lossless(self, original_frames, decompressed_frames) -> Dict:
         return verify_lossless(original_frames, decompressed_frames,
@@ -1046,6 +1080,157 @@ class ImprovedVideoCompressor:
 
     def add_yuv_info_to_frame(self, yuv_frame):
         return add_yuv_info_to_frame(yuv_frame)
+
+    def _convert(self, op, arr) -> np.ndarray:
+        """One ``ops/color.py`` conversion of a host uint8 frame on this
+        compressor's device, back as a host array."""
+        return op(self._upload(arr)).cpu().numpy()
+
+    def save_frames_as_video(self, frames, output_path: str,
+                             fps: int = 30) -> str:
+        """Preview export via cv2 (mp4v — not lossless; verification
+        always compares in-memory frames)."""
+        if not frames:
+            raise ValueError("No frames provided")
+        first = unwrap(frames[0])
+        is_color = first.ndim > 2
+        out = []
+        for frame in frames:
+            arr = unwrap(frame)
+            if is_color and yuv_info_of(frame) is not None:
+                # YUV content is self-identifying (yuv_info); convert
+                # for the BGR writer regardless of the use_direct_yuv
+                # flag so YUV-compressed streams export with correct
+                # colors.
+                arr = self._convert(color_ops.yuv_to_bgr, arr)
+            elif not is_color and arr.ndim == 2:
+                arr = np.repeat(arr[..., None], 3, axis=-1)
+            elif is_color and arr.shape[2] == 3 and yuv_info_of(frame) is None:
+                arr = arr[..., ::-1]  # RGB -> BGR for the writer
+            out.append(arr)
+        return videoio.write_video_frames(out, output_path, fps=fps,
+                                          is_color=True)
+
+    def analyze_noise_vs_compression(self, width: int = 640,
+                                     height: int = 480,
+                                     frame_count: int = 90,
+                                     noise_levels=None,
+                                     output_dir: Optional[str] = None,
+                                     color_space: str = "BGR") -> Dict:
+        """Sweep synthetic noise levels and measure compression ratio and
+        losslessness at each.  Writes a matplotlib plot when output_dir
+        is given and the lib is present."""
+        from new_bloom_filter_repo_tpu_torch.utils.synthetic import (
+            generate_frames,
+        )
+        if noise_levels is None:
+            noise_levels = [0.0, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0]
+        ratios, lossless_flags = [], []
+        import tempfile
+        for noise in noise_levels:
+            frames = generate_frames(frame_count, width, height,
+                                     noise=noise, color_space=color_space)
+            with tempfile.TemporaryDirectory() as td:
+                path = os.path.join(td, "clip.bfvc")
+                res = self.compress_video(frames, path,
+                                          input_color_space=color_space)
+                rec = self.decompress_video(path)
+            v = verify_lossless(frames, rec)
+            ratios.append(res["compression_ratio"])
+            lossless_flags.append(bool(v["lossless"]))
+            if self.verbose:
+                print(f"noise={noise}: ratio={res['compression_ratio']:.4f} "
+                      f"lossless={v['lossless']}")
+        result = {"noise_levels": list(noise_levels), "ratios": ratios,
+                  "lossless": lossless_flags, "color_space": color_space}
+        if output_dir:
+            os.makedirs(output_dir, exist_ok=True)
+            try:
+                import matplotlib
+                matplotlib.use("Agg")
+                import matplotlib.pyplot as plt
+                fig, ax = plt.subplots(figsize=(7, 4.5))
+                ax.plot(noise_levels, ratios, marker="o")
+                ax.set_xlabel("noise level (sigma)")
+                ax.set_ylabel("compression ratio")
+                ax.set_title(f"Noise vs compression ({color_space})")
+                ax.grid(True, alpha=0.3)
+                path = os.path.join(
+                    output_dir, f"noise_comparison_{color_space}.png")
+                fig.savefig(path, dpi=110)
+                plt.close(fig)
+                result["plot"] = path
+            except ImportError:
+                pass
+        return result
+
+    def extract_frames_from_video(self, video_path: str, max_frames: int = 0,
+                                  target_fps: Optional[float] = None,
+                                  scale_factor: float = 1.0,
+                                  output_color_space: Optional[str] = None,
+                                  width: Optional[int] = None,
+                                  height: Optional[int] = None,
+                                  format: str = "I420",
+                                  frame_step: int = 1) -> List[np.ndarray]:
+        """Extract frames from a file.
+
+        ``output_color_space=None`` picks :func:`default_color_space` for
+        the file: YUV for native-YUV containers (.y4m) — the lossless
+        native-plane path — else BGR.  A single ``.exr`` or a directory
+        of them gives float frames (``utils/exr.py``).  Raw ``.yuv``
+        files need width/height (and format/frame_step)."""
+        if output_color_space is None:
+            output_color_space = default_color_space(video_path)
+        if video_path.lower().endswith(".exr") or (
+                os.path.isdir(video_path) and any(
+                    f.lower().endswith(".exr")
+                    for f in os.listdir(video_path))):
+            from new_bloom_filter_repo_tpu_torch.utils import exr
+            if os.path.isdir(video_path):
+                paths = sorted(
+                    os.path.join(video_path, f)
+                    for f in os.listdir(video_path)
+                    if f.lower().endswith(".exr"))
+                if max_frames:
+                    paths = paths[:max_frames]
+                return [exr.read_exr(p) for p in paths]
+            return [exr.read_exr(video_path)]
+        if video_path.lower().endswith(".yuv") or (width and height):
+            if not (width and height):
+                raise ValueError("raw YUV input requires width and height")
+            frames = videoio.read_raw_yuv(video_path, width, height, format,
+                                          max_frames, frame_step)
+            return [add_yuv_info_to_frame(f) for f in frames]
+        if video_path.lower().endswith(".y4m"):
+            frames, params = videoio.read_y4m(video_path, max_frames)
+            if output_color_space.upper() == "YUV":
+                # Carry the file's ORIGINAL subsampled planes so the
+                # planar profile can code (and export) them exactly.
+                out = []
+                for f, planes in zip(frames, params["planes"]):
+                    if len(planes) == 3 and f.ndim == 3:
+                        out.append(YUVFrame(f, {
+                            "format": params["colorspace"],
+                            "y_plane": planes[0].copy(),
+                            "u_plane": planes[1].copy(),
+                            "v_plane": planes[2].copy()}))
+                    else:
+                        out.append(add_yuv_info_to_frame(f)
+                                   if f.ndim == 3 else f)
+                return out
+            bgr = [self._convert(color_ops.yuv_to_bgr, f) for f in frames]
+            if output_color_space.upper() == "RGB":
+                return [f[..., ::-1] for f in bgr]
+            return bgr
+        frames = videoio.open_video_frames(video_path, max_frames,
+                                           target_fps, scale_factor)
+        cs = output_color_space.upper()
+        if cs == "RGB":
+            return [f[..., ::-1] for f in frames]
+        if cs == "YUV":
+            return [add_yuv_info_to_frame(
+                self._convert(color_ops.bgr_to_yuv, f)) for f in frames]
+        return frames
 
 
 def _from_bytes(fb: np.ndarray, like: np.ndarray) -> np.ndarray:

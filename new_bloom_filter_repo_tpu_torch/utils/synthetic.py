@@ -13,6 +13,8 @@ not just its best case.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -173,7 +175,18 @@ SUITE = {
 
 def generate_y4m_suite(out_dir: str, width: int = 352, height: int = 288,
                        frame_count: int = 60, seed: int = 0) -> list:
-    """Write the adversarial suite as 4:2:0 Y4M files.  Needs the Y4M
-    writer (``utils/videoio``), which this package does not port yet."""
-    raise NotImplementedError(
-        "generate_y4m_suite needs utils/videoio (ROADMAP Queue 1 item 12)")
+    """Write the adversarial suite as real 4:2:0 Y4M files (CIF geometry
+    by default).  Returns the written paths."""
+    from new_bloom_filter_repo_tpu_torch.utils.videoio import write_y4m
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for name, kw in SUITE.items():
+        frames = generate_frames(frame_count, width, height, seed=seed,
+                                 **kw)
+        planes = [(f[:, :, 0], f[::2, ::2, 1], f[::2, ::2, 2])
+                  for f in frames]
+        path = os.path.join(out_dir, f"synthetic_{name}.y4m")
+        write_y4m(path, planes, width, height)
+        paths.append(path)
+    return paths

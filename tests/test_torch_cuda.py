@@ -318,3 +318,64 @@ def test_bloom_ops_on_the_card_equal_cpu(dev):
     img = rng.integers(0, 256, (90, 120), dtype=np.uint8)
     assert torch.equal(median.median_blur(torch.from_numpy(img).to(dev)).cpu(),
                        median.median_blur(torch.from_numpy(img)))
+
+
+# ---------------------------------------------------------------------------
+# Files, the command line and the tools on the card
+# ---------------------------------------------------------------------------
+
+def test_cli_on_the_card_equals_cpu_and_reproduces_the_file(dev, tmp_path):
+    """``compress`` / ``decompress`` with no ``--device`` run on the
+    card: the CPU's ``.bfvc`` bytes, and the input file back."""
+    from new_bloom_filter_repo_tpu_torch import cli
+    from new_bloom_filter_repo_tpu_torch.utils import videoio
+
+    frames = other_clip("planar")
+    src = str(tmp_path / "in.y4m")
+    videoio.write_y4m(src, [(f.yuv_info["y_plane"], f.yuv_info["u_plane"],
+                             f.yuv_info["v_plane"]) for f in frames], 64, 48)
+    for profile in ([], ["--profile", "planar"]):
+        card, cpu = str(tmp_path / "card.bfvc"), str(tmp_path / "cpu.bfvc")
+        bk.reset_launches()
+        assert cli.main(["compress", src, card] + profile) == 0
+        assert bk.launches()["blocked_encode_h"] > 0
+        assert cli.main(["compress", src, cpu, "--device", "cpu"]
+                        + profile) == 0
+        with open(card, "rb") as a, open(cpu, "rb") as b:
+            assert a.read() == b.read()
+        back = str(tmp_path / "back.y4m")
+        assert cli.main(["decompress", card, back]) == 0
+        with open(src, "rb") as a, open(back, "rb") as b:
+            assert a.read() == b.read()
+
+
+def test_verify_harness_and_host_stages_on_the_card(dev, tmp_path):
+    from new_bloom_filter_repo_tpu_torch import verify_harness as vh
+    from new_bloom_filter_repo_tpu_torch.utils import profiling, videoio
+
+    frames = other_clip("planar")
+    src = str(tmp_path / "in.y4m")
+    videoio.write_y4m(src, [(f.yuv_info["y_plane"], f.yuv_info["u_plane"],
+                             f.yuv_info["v_plane"]) for f in frames], 64, 48)
+    res = vh.test_true_lossless(src, ("YUV", "BGR"), max_frames=6,
+                                verbose=False)
+    assert res["all_passed"], res
+    bk.reset_launches()
+    clip = generate_frames(16, 96, 80, seed=0, **SUITE["static_gentle"])
+    enc_s, dec_s, detail = profiling.measure_host_stages(clip)
+    assert enc_s > 0 and dec_s > 0
+    for key in profiling.ENC_HOST_KEYS + profiling.DEC_HOST_KEYS:
+        assert key in detail
+    launched = bk.launches()
+    assert launched["blocked_encode_h"] and launched["blocked_membership_h"]
+
+
+def test_stress_of_the_double_buffered_kernels(dev):
+    """A short run of chip_smoke's phase 12: K1, K5a, K3 and K4 launched a
+    few hundred times each, every launch equal to its twin."""
+    import chip_smoke
+
+    launched = chip_smoke.phase_stress(
+        dev, rounds=(("quiet", 12), ("busy", 6), ("split", 6)), seed=77,
+        nbs=(64, 65, 257, 513), fs=(1, 2, 15, 16, 17))
+    assert launched == {name: 20 * 24 for name in chip_smoke.STRESS_KERNELS}
