@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only
+    python3 chip_smoke.py --mesh-processes-only
 
 Drives the port's main path, ``ImprovedVideoCompressor(device="cuda")``
 (blocked profile, exact, motion on), through ``compress_video`` and
@@ -99,19 +100,34 @@ its plain PyTorch twin on the card.  Phases:
     first chunk, and a compress + decompress of 16 bench frames under
     ``profiling.trace``, whose Chrome trace gives the card's busy share
     (kernel and copy time over the wall).  None of it needs cv2, PIL or
-    matplotlib.
+    matplotlib;
+14. a mesh across processes: two children of this script (``--mesh-child
+    RANK PORT DIR``) each join through ``initialize_distributed``
+    ("127.0.0.1:PORT", 2, RANK), build a dp = 2 mesh with one cell a
+    process (both on ``cuda:0`` on one card, which takes the staged
+    transport over gloo; rank r on ``cuda:r`` on two or more cards,
+    which takes NCCL), and after a CIF warm-up each compresses the
+    phase-3 and phase-4 clips (31 frames, 1080p) through
+    ``ImprovedVideoCompressor(devices=mesh)`` to a file of its own and
+    decompresses it through the mesh, bit-exact.  Each prints its
+    launches of K1-K4, its fps, the transport and the seconds, calls
+    and bytes of the cross-process hop.  Both children's files must
+    equal the single-device files of phases 3-4 byte for byte.  A child
+    that exits non-zero, outlives 300 s or writes another file fails
+    the run.
 
 Phases 8-11 time each round trip once as it is (the path's fps) and
 then once more under a stage timer, which synchronises the card around
 its device stages, for the breakdown of where the time goes.
 
-Phases 3, 4, 6, 7, 8, 9 and 13 (a)-(c) are the paths of the kernels:
+Phases 3, 4, 6, 7, 8, 9, 13 (a)-(c) and 14 are the paths of the kernels:
 every kernel's launch count is set to 0 just before each and read just
 after, and a kernel its path must launch that it did not fails the run
 (K1-K3 on phase 3; K1, K2 and K4 on phase 4; K5a, K5b and K4 on phase
 6; K1-K4 on phase 7; K1, K2 and K3 or K4 on phases 8 and 13 (a); K1-K3
-on phases 9 and 13 (c); K1 and K2 on phase 13 (b)).  Every phase that
-fails raises; nothing falls back to the CPU.
+on phases 9 and 13 (c); K1 and K2 on phase 13 (b); in each child of
+phase 14, K1-K3 on the static clip and K1, K2 and K4 on the pan clip).
+Every phase that fails raises; nothing falls back to the CPU.
 The second-to-last lines are the
 per-kernel JSON (launches summed over the path runs) and the card's
 name and power limit; the last line is ``{"ok": true, "device":
@@ -122,6 +138,9 @@ registers and spill bytes.  Exits non-zero without a CUDA card.
 ``--kernels-only`` stops after phase 2 and prints no JSON: a copy of
 this script put at the root of another checkout (an older commit)
 times that checkout's kernels the same way, in the same call.
+``--mesh-processes-only`` runs phases 1, 3-4 and 14 and prints no JSON:
+the call to make on a machine with several cards, where phase 14 takes
+NCCL between two cards.
 """
 
 from __future__ import annotations
@@ -131,6 +150,7 @@ import itertools
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1652,6 +1672,152 @@ def phase_files(dev, bench, pan, f32_frames, tmp, card):
     return {n: sum(r[n] for r in runs) for n in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: a mesh across two processes
+# ---------------------------------------------------------------------------
+
+MESH_CLIPS = {"static": ["blocked_encode_h", "blocked_membership_h",
+                         "blocked_expand_chain"],
+              "pan": ["blocked_encode_h", "blocked_membership_h",
+                      "blocked_expand"]}
+CHILD_LIMIT_S = 300
+
+
+def mesh_child(rank: int, port: str, tmp: str) -> int:
+    """One process of phase 14; prints one JSON line."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch.models.video import (
+        ImprovedVideoCompressor)
+    from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+    from new_bloom_filter_repo_tpu_torch.parallel import blocked_batch as bb
+    from new_bloom_filter_repo_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh)
+    from new_bloom_filter_repo_tpu_torch.utils import synthetic
+
+    several = torch.cuda.device_count() >= 2
+    torch.cuda.set_device(rank if several else 0)
+    info = initialize_distributed(f"127.0.0.1:{port}", 2, rank)
+    if info["num_processes"] != 2 or info["process_id"] != rank:
+        raise AssertionError(f"initialize_distributed: {info}")
+    mesh = make_mesh(2, 1, [(r, f"cuda:{r if several else 0}")
+                            for r in range(2)])
+    if not mesh.multiproc or mesh.transport != (
+            "nccl" if several else "gloo-staged"):
+        raise AssertionError(f"{mesh}: transport {mesh.transport}")
+    clips = {"static": make_bench_clip(31),
+             "pan": synthetic.generate_frames(31, W, H, seed=0,
+                                              **synthetic.SUITE["pan"])}
+    comp = ImprovedVideoCompressor(devices=mesh)
+    warm = synthetic.generate_frames(16, 352, 288, seed=0,
+                                     **synthetic.SUITE["pan"])
+    path = os.path.join(tmp, f"mesh_proc{rank}_warm.bfvc")
+    comp.compress_video(warm, path, input_color_space="BGR")
+    comp.decompress_video(path)
+    out = {"rank": rank, "transport": mesh.transport, "mesh": repr(mesh),
+           "card": torch.cuda.get_device_name(mesh.home)}
+    for name, frames in clips.items():
+        path = os.path.join(tmp, f"mesh_proc{rank}_{name}.bfvc")
+        bk.reset_launches()
+        bb.reset_hop()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comp.compress_video(frames, path, input_color_space="BGR")
+        t1 = time.perf_counter()
+        enc_hop = bb.hop_stats()
+        dec = comp.decompress_video(path)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if len(dec) != len(frames) or not all(
+                same_bits(a, b) for a, b in zip(frames, dec)):
+            raise AssertionError(f"process {rank}, {name}: round trip is "
+                                 f"not bit-exact")
+        launches = bk.launches()
+        missing = [k for k in MESH_CLIPS[name] if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"process {rank}, {name}: never launched "
+                                 f"{missing}")
+        hop = bb.hop_stats()
+        out[name] = {
+            "compress_fps": len(frames) / (t1 - t0),
+            "decompress_fps": len(frames) / (t2 - t1),
+            "launches": launches, "records": count_records(path),
+            "hop_compress_s": enc_hop["seconds"],
+            "hop_decompress_s": hop["seconds"] - enc_hop["seconds"],
+            "hop_wait_s": hop["wait_seconds"],
+            "hop_calls": hop["calls"], "hop_received_bytes": hop["bytes"]}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def single_device_streams(tmp):
+    """The bytes of the files phases 3-4 wrote (later phases reuse their
+    names)."""
+    refs = {}
+    for name in MESH_CLIPS:
+        with open(os.path.join(tmp, f"{name}.bfvc"), "rb") as fh:
+            refs[name] = fh.read()
+    return refs
+
+
+def phase_mesh_processes(tmp, card, refs):
+    """Phase 14: start the two children, wait for both, hold their files
+    to ``refs``, the single-device streams of phases 3-4.  Returns the
+    children's launches, summed."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-child", str(r),
+         str(port), tmp], stdout=subprocess.PIPE, text=True, cwd=REPO,
+        env=env) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            left = CHILD_LIMIT_S - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(1.0, left))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh process {r} exited with "
+                                 f"{p.returncode}: {text[-2000:]}")
+        reports.append(json.loads(text.strip().splitlines()[-1]))
+    log(f"  two processes, {reports[0]['mesh']}, transport "
+        f"{reports[0]['transport']}, {time.perf_counter() - t0:.2f} s in all "
+        f"with start-up, clip generation and a CIF warm-up")
+    total = {n: 0 for n in KERNELS}
+    for rep in reports:
+        for name in MESH_CLIPS:
+            c = rep[name]
+            with open(os.path.join(
+                    tmp, f"mesh_proc{rep['rank']}_{name}.bfvc"), "rb") as fh:
+                same = fh.read() == refs[name]
+            if not same:
+                raise AssertionError(
+                    f"process {rep['rank']}: the {name} stream differs from "
+                    f"the single-device stream")
+            log(f"  process {rep['rank']} on {rep['card']}, {name} 1080p 31 "
+                f"frames: bit-exact, .bfvc byte-identical to the "
+                f"single-device file; compress {c['compress_fps']:.3f} fps, "
+                f"decompress {c['decompress_fps']:.3f} fps; hop "
+                f"{c['hop_compress_s'] * 1e3:.1f} ms of the compress and "
+                f"{c['hop_decompress_s'] * 1e3:.1f} ms of the decompress (of "
+                f"both, {c['hop_wait_s'] * 1e3:.1f} ms waiting for the other "
+                f"process), {c['hop_calls']} calls, "
+                f"{c['hop_received_bytes'] / 1e6:.1f} MB received ({card}); "
+                f"launches {c['launches']}; records {c['records']}")
+            for n in KERNELS:
+                total[n] += c["launches"][n]
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1660,6 +1826,8 @@ def main() -> int:
               "script runs only on a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--mesh-child"]:
+        return mesh_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     from new_bloom_filter_repo_tpu_torch.models.video import (
         ImprovedVideoCompressor)
     from new_bloom_filter_repo_tpu_torch.ops import _build
@@ -1693,6 +1861,13 @@ def main() -> int:
     byte_clips = byte_view_clips(16)
     log(f"  clips generated on the host in {time.perf_counter() - t0:.2f} s")
 
+    if "--mesh-processes-only" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as tmp:
+            log("phases 3-4 main path:")
+            phase_main_path(dev, bench, pan, tmp, smi)
+            log(f"phase 14 a mesh across two processes ({smi}):")
+            phase_mesh_processes(tmp, smi, single_device_streams(tmp))
+        return 0
     log(f"phase 2 kernels vs twins at 1080p chunk shapes ({smi}):")
     path_chunks = [("planar U plane chunk",
                     [f.yuv_info["u_plane"] for f in i420_from(pan[:16])])]
@@ -1705,6 +1880,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         log("phases 3-4 main path:")
         runs = [phase_main_path(dev, bench, pan, tmp, smi)]
+        single = single_device_streams(tmp)
         log("phase 5 parity:")
         phase_parity(dev, tmp)
         log(f"phase 6 mesh dry run ({smi}):")
@@ -1725,6 +1901,8 @@ def main() -> int:
         log(f"phase 13 files, the CLI, the harness and the tools ({smi}):")
         runs.append(phase_files(dev, bench, pan, byte_clips[1][1][:4], tmp,
                                 smi))
+        log(f"phase 14 a mesh across two processes ({smi}):")
+        runs.append(phase_mesh_processes(tmp, smi, single))
     launches = {n: sum(r[n] for r in runs) for n in KERNELS}
 
     kernels = []

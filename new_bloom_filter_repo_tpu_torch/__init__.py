@@ -13,7 +13,9 @@ The port covers every mode and profile of the JAX package's
 uint16, float32 and >3-channel frames), ``FixedVideoCompressor`` and the
 binary codec ``BloomFilterCompressor``, each with an explicit ``device``
 argument, on one device or, with ``devices=``, on a (dp, sp) mesh of
-devices driven by one process (``parallel/``).  Files go in and out as
+devices, of one process or, after ``parallel.mesh.
+initialize_distributed``, of several (``parallel/``).  Files go in and
+out as
 in the reference: Y4M and raw planar YUV (``utils/videoio``), OpenEXR
 (``utils/exr``), any container cv2 reads, through
 ``extract_frames_from_video`` and ``decompress_video(output_path=...)``;
@@ -21,9 +23,8 @@ the command line (``python -m new_bloom_filter_repo_tpu_torch.cli``,
 with ``--device``), the bit-exact verification harness
 (``verify_harness``), the stream report (``utils/streaminfo``), the
 false-positive-rate experiments (``experiments``) and tracing
-(``utils/profiling``, over ``torch.profiler``) are here too.  Not
-ported: meshes across processes (``parallel.mesh.
-initialize_distributed`` raises).  It never imports ``jax``.
+(``utils/profiling``, over ``torch.profiler``) are here too.  It never
+imports ``jax``.
 """
 
 __version__ = "0.1.0"

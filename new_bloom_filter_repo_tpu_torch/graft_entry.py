@@ -17,7 +17,11 @@ PyTorch port:
 
 Unlike the JAX package, nothing here probes backends or falls back to
 virtual CPU devices: a mesh is built from the devices it names, and
-:func:`auto_mesh` raises when there are too few cards.
+:func:`auto_mesh` raises when there are too few cards.  After
+``parallel.mesh.initialize_distributed`` the blocked dry run also runs
+on a mesh over several processes (each runs its own cells and receives
+the others' outputs); the BFV2 dry run stays within one process, as in
+the JAX package.
 """
 
 from __future__ import annotations

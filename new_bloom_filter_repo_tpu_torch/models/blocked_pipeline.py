@@ -31,8 +31,10 @@ byte-identical with or without a mesh.  Record selection and the host
                                  entropy-codes smaller)
 Nonzero global-motion shifts wrap any of these with a type-6 header.
 
-Not ported yet: meshes that span several processes (ROADMAP Queue 1
-item 11).
+A mesh may span several processes (``parallel.mesh.
+initialize_distributed``): every process then makes the same calls on
+the same frames, runs the device stages of its own cells, receives
+every other cell's outputs, and so assembles the same records.
 """
 
 from __future__ import annotations
@@ -139,7 +141,8 @@ def _phase_a(stacked, *, npad: int, nb: int):
 
 MOTION_RADIUS = 7      # search window: shifts in [-R, R]^2
 MOTION_STRIDE = 4      # subsampled count grid (n/16 samples)
-MOTION_ACCEPT_10 = 7   # accept the best shift iff cb * 10 <= c0 * 7
+MOTION_ACCEPT = 0.7    # accept the best shift iff count <= 0.7 * count(0,0)
+MOTION_ACCEPT_10 = 7   # ... which the gates test as cb * 10 <= c0 * 7
 MOTION_MIN_C0 = 64     # ... and the zero-shift count is worth beating
 
 
@@ -194,6 +197,13 @@ def _motion_counts_pair(prev_u8, curr_u8, stride: int = MOTION_STRIDE):
     return torch.stack(rows, dim=1).reshape(b, -1)
 
 
+def _motion_counts(stacked, *, stride: int = MOTION_STRIDE):
+    """:func:`_motion_counts_pair` over a stacked (F+1, h, w[, c]) uint8
+    chunk: (F, (2R+1)^2) i32 mismatch counts for every candidate shift
+    of the previous frame."""
+    return _motion_counts_pair(stacked[:-1], stacked[1:], stride=stride)
+
+
 def motion_stride(h: int, w: int) -> int:
     """Count-grid stride for the motion searches: 4 keeps small frames
     sensitive; 1MP+ frames (720p/1080p/4K) use 8 — still tens of
@@ -209,6 +219,29 @@ def tile_log(h: int, w: int) -> int:
     1080p/4K map overhead (and search memory) small at 8x8 count
     samples per tile with :func:`motion_stride` = 8."""
     return 6 if h * w >= (1 << 20) else TILE_LOG
+
+
+def choose_shifts(counts: np.ndarray) -> np.ndarray:
+    """Host shift decision from :func:`_motion_counts` output, (F, 2)
+    int32.
+
+    Deterministic: first argmin in (dy, dx) lexicographic order; the
+    zero shift wins unless the best candidate beats it by the margin (a
+    wrong pick only costs ratio, never losslessness, but zero shifts
+    keep static content's streams byte-identical to motion-off
+    encodes).  The gate is exact integer math (cb * 10 <= c0 * 7), the
+    one :func:`_phase_a_auto_pair` takes on the device."""
+    f = counts.shape[0]
+    side = 2 * MOTION_RADIUS + 1
+    zero_idx = MOTION_RADIUS * side + MOTION_RADIUS
+    shifts = np.zeros((f, 2), np.int32)
+    best = np.argmin(counts, axis=1)
+    c0 = counts[:, zero_idx].astype(np.int64)
+    cb = counts[np.arange(f), best].astype(np.int64)
+    take = (c0 >= MOTION_MIN_C0) & (cb * 10 <= c0 * MOTION_ACCEPT_10)
+    shifts[take, 0] = best[take] // side - MOTION_RADIUS
+    shifts[take, 1] = best[take] % side - MOTION_RADIUS
+    return shifts
 
 
 def _phase_a_auto_pair(prev, curr, *, stride: int, npad: int, nb: int):
@@ -401,6 +434,14 @@ def _phase_a_motion_pair(prev, curr, shifts, *, npad: int, nb: int):
                               pc.reshape(b, -1), npad, nb)
 
 
+def _phase_a_motion(stacked, shifts, *, npad: int, nb: int):
+    """:func:`_phase_a` with per-frame global-motion shifts, (F, 2) i32:
+    the diff runs against roll(prev, (dy, dx)) instead of prev; zero
+    rows reproduce :func:`_phase_a`'s masks exactly."""
+    return _phase_a_motion_pair(stacked[:-1], stacked[1:], shifts,
+                                npad=npad, nb=nb)
+
+
 def _packbits_rows(flat: torch.Tensor, npad: int) -> torch.Tensor:
     """(F, n) bool -> (F, npad // 8) u8, np.packbits order."""
     f, n = flat.shape
@@ -588,12 +629,35 @@ class _MeshDispatch:
     than 1, the block axis shards over ``sp``.  Neither axis needs
     collectives, and the record geometry (npad, nb) is canonical per n,
     so sharded and unsharded pipelines emit byte-identical streams.
-    Every result is gathered on the mesh's home device.  Single-process
-    only: a mesh is driven by the process that holds its devices."""
+    Every result is gathered on the mesh's home device.
+
+    On a mesh whose cells belong to several processes (``multiproc``)
+    each process runs the shards of its own cells and every result
+    reaches every process's home device, so the host record stages run
+    alike everywhere and every process writes the same bytes.  The
+    methods below are called from the thread that drives the device
+    phase, in the same order in every process (the host ``finish()``
+    phase, which may run on a worker thread, calls none of them)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
         self.sp = int(mesh.shape["sp"])
+        # the mesh spans more than one process
+        # (parallel.mesh.initialize_distributed was called)
+        self.multiproc = bool(mesh.multiproc)
+
+    def _loc(self, x):
+        """A program input across processes: every process holds the
+        identical full copy and cuts its own cells' shards from it
+        (``bb.run_sharded``), so nothing is sent on the way in."""
+        return x
+
+    def _glob(self, *arrays):
+        """Program outputs across processes: full copies on this
+        process's home device.  ``bb.run_sharded`` has made the hop
+        (``bb._exchange``; ``bb.hop_stats()`` times it), so every pull
+        after this sees what one device would hold."""
+        return arrays if len(arrays) > 1 else arrays[0]
 
     @staticmethod
     def _pairs(stacked):
@@ -602,34 +666,34 @@ class _MeshDispatch:
         return stacked[:-1], stacked[1:]
 
     def _frames(self, fn, *args):
-        return bb.run_sharded(self.mesh, fn, args, (bb.DP,) * len(args),
-                              block_axis=False)
+        return bb.run_sharded(self.mesh, fn, [self._loc(a) for a in args],
+                              (bb.DP,) * len(args), block_axis=False)
 
     def phase_a(self, stacked, *, npad: int, nb: int):
         """dp-sharded diff stage: masks, counts, vals."""
-        return self._frames(lambda p, c: _phase_a_pair(p, c, npad=npad,
-                                                       nb=nb),
-                            *self._pairs(stacked))
+        return self._glob(*self._frames(
+            lambda p, c: _phase_a_pair(p, c, npad=npad, nb=nb),
+            *self._pairs(stacked)))
 
     def motion_counts(self, stacked, stride: int):
         """dp-sharded global-motion search counts."""
-        return self._frames(
+        return self._glob(*self._frames(
             lambda p, c: (_motion_counts_pair(p, c, stride=stride),),
-            *self._pairs(stacked))[0]
+            *self._pairs(stacked)))
 
     def phase_a_auto(self, stacked, stride: int, *, npad: int, nb: int):
         """dp-sharded fused phase A (motion search, the per-pair shift
         decision, rolled diff): masks, counts, vals, shifts, best."""
-        return self._frames(
+        return self._glob(*self._frames(
             lambda p, c: _phase_a_auto_pair(p, c, stride=stride, npad=npad,
                                             nb=nb),
-            *self._pairs(stacked))
+            *self._pairs(stacked)))
 
     def phase_a_motion(self, stacked, shifts, *, npad: int, nb: int):
         """dp-sharded motion diff stage (rows independent)."""
-        return self._frames(
+        return self._glob(*self._frames(
             lambda p, c, s: _phase_a_motion_pair(p, c, s, npad=npad, nb=nb),
-            *self._pairs(stacked), shifts)
+            *self._pairs(stacked), shifts))
 
     def _tables(self, tab):
         return tab["h1"], tab["h2"], tab["act_hi"], tab["act_lo"]
@@ -639,8 +703,10 @@ class _MeshDispatch:
         """Sharded K1 encode; value segments repacked to bytes."""
         make = (bb.make_blocked_encode_h_dpsp if self.sp > 1
                 else bb.make_blocked_encode_h_dp)
-        w, wi, wc, vs, vc = make(self.mesh, k_lanes=k_lanes, vh=vh, nw=nw)(
-            masks, *self._tables(tab), vals, m, thi, tlo, fk)
+        w, wi, wc, vs, vc = self._glob(*make(
+            self.mesh, k_lanes=k_lanes, vh=vh, nw=nw)(
+            *(self._loc(a) for a in (masks, *self._tables(tab), vals, m,
+                                     thi, tlo, fk))))
         return w, wi, wc, _pack_vseg_bytes(vs, channels), vc
 
     def membership(self, words, tab, m, thi, tlo, fk, flags, *, k_lanes,
@@ -648,16 +714,18 @@ class _MeshDispatch:
         """Sharded K2 membership: (passes, wcnt)."""
         make = (bb.make_blocked_membership_h_dpsp if self.sp > 1
                 else bb.make_blocked_membership_h_dp)
-        return make(self.mesh, k_lanes=k_lanes, nw=nw)(
-            words, *self._tables(tab), m, thi, tlo, fk, flags)
+        return self._glob(*make(self.mesh, k_lanes=k_lanes, nw=nw)(
+            *(self._loc(a) for a in (words, *self._tables(tab), m, thi, tlo,
+                                     fk, flags))))
 
     def expand(self, passes, wit, raw, flags, vseg_bytes, *, vh, channels):
         """Value bytes unpacked to packed pixels, then sharded K4."""
         make = (bb.make_blocked_expand_dpsp if self.sp > 1
                 else bb.make_blocked_expand_dp)
-        return make(self.mesh, vh=vh)(
-            passes, wit, raw, flags,
-            _unpack_vseg_bytes(vseg_bytes, channels))
+        return self._glob(*make(self.mesh, vh=vh)(
+            *(self._loc(a) for a in (
+                passes, wit, raw, flags,
+                _unpack_vseg_bytes(vseg_bytes, channels)))))
 
 
 def _dispatch_of(mesh) -> Optional[_MeshDispatch]:
@@ -774,6 +842,22 @@ class BlockedEncoder:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def encode_chunk(self, base: np.ndarray, frames: List[np.ndarray],
+                     payload_sink: List[bytes], keyframe_fn=None,
+                     stacked=None, stage_times: Optional[dict] = None,
+                     byte_view: bool = False) -> int:
+        """Encode ``frames`` (diffed against base, then chained); append
+        one record per frame to payload_sink.  Returns the number of
+        keyframes emitted.  Serial wrapper over
+        :meth:`encode_chunk_begin`; the pipelined caller
+        (models/video.py) runs the returned host phase on a worker
+        thread instead, beside the next chunk's device phase."""
+        payloads, keyframes = self.encode_chunk_begin(
+            base, frames, keyframe_fn, stacked=stacked,
+            stage_times=stage_times, byte_view=byte_view)()
+        payload_sink.extend(payloads)
+        return keyframes
 
     def encode_chunk_begin(self, base: np.ndarray,
                            frames: List[np.ndarray], keyframe_fn=None, *,

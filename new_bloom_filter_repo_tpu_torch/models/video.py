@@ -21,7 +21,10 @@ with; a CPU device runs the kernels' plain twins, a CUDA device the
 hand-written kernels and every torch op on the card.  ``devices=`` (an
 int, a ``(dp, sp)`` tuple, ``"auto"`` or a ``parallel.mesh.Mesh``)
 shards each chunk over frames (and, blocked profile, blocks) on several
-devices of one process, with the same bytes as one device.  The
+devices, with the same bytes as one device; after
+``parallel.mesh.initialize_distributed`` the mesh may span several
+processes, which all make the same calls on the same frames and all
+write the same file (blocked, planar and byte view; not ``"bfv2"``).  The
 ``.bfvc`` bytes are the reference's: for the same frames and options
 both packages write the same file, and each decodes the other's.
 
@@ -31,8 +34,7 @@ through ``decompress_video(output_path=...)``: ``.yuv`` and ``.y4m``
 are written from the decoded native planes, byte for byte the input
 file's; any other extension is a cv2 preview.  Colour conversions on
 those paths run ``ops/color.py`` on the compressor's device (integer
-arithmetic: a card and the CPU give the same bytes).  Meshes across
-processes have no entry point here.
+arithmetic: a card and the CPU give the same bytes).
 """
 
 from __future__ import annotations
@@ -242,6 +244,11 @@ class ImprovedVideoCompressor:
         self.mesh = _resolve_mesh(
             devices, "cuda" if device is None else torch.device(device).type)
         self.device = home_device(self.mesh, device)
+        if profile == "bfv2" and self.mesh is not None \
+                and self.mesh.multiproc:
+            raise ValueError('profile="bfv2" shards over the devices of one '
+                             'process; a mesh over several processes serves '
+                             'the blocked and planar profiles')
         self.noise_tolerance = noise_tolerance
         self.keyframe_interval = max(1, int(keyframe_interval))
         self.min_diff_threshold = min_diff_threshold
@@ -341,7 +348,9 @@ class ImprovedVideoCompressor:
         ``finish()`` closure) runs on ONE worker thread while the main
         thread drives chunk i+1's device phase; the single worker keeps
         host phases in submit order, so payload assembly is an in-order
-        drain.  ``byte_view``: the device work runs on raw frame bytes;
+        drain.  ``NBF_OVERLAP=0`` pins the serial schedule: every job
+        runs inline, in the same order, to the same bytes.
+        ``byte_view``: the device work runs on raw frame bytes;
         keyframes keep the original dtype."""
         payloads: List[bytes] = []
         keyframes = 0
@@ -359,12 +368,13 @@ class ImprovedVideoCompressor:
             return cf, blocked_pipeline.BlockedEncoder.stack_chunk(
                 darrs[s - 1], cf, self.device)
 
-        inflight = None  # (future, real): at most ONE queued host phase
+        overlap = os.environ.get("NBF_OVERLAP", "1") == "1"
+        inflight = None  # (future or thunk, real): at most ONE queued
         with ThreadPoolExecutor(max_workers=1) as ex:
 
             def drain(job, real):
                 nonlocal keyframes
-                chunk_payloads, kf = job.result()
+                chunk_payloads, kf = job.result() if overlap else job()
                 payloads.extend(chunk_payloads[:real])
                 keyframes += kf
 
@@ -375,7 +385,7 @@ class ImprovedVideoCompressor:
                         return [fc.encode_keyframe_best(
                             _a, _i,
                             zlib_level=self._keyframe_zlib_level)], 1
-                    job = ex.submit(key_job)
+                    job = ex.submit(key_job) if overlap else key_job
                     if inflight is not None:
                         drain(*inflight)
                     inflight = (job, 1)
@@ -401,7 +411,7 @@ class ImprovedVideoCompressor:
                 finish = self._blocked_enc.encode_chunk_begin(
                     darrs[start - 1], chunk_frames, keyframe_fn,
                     stacked=stacked, byte_view=byte_view)
-                job = ex.submit(finish)
+                job = ex.submit(finish) if overlap else finish
                 if inflight is not None:
                     drain(*inflight)
                 inflight = (job, real)

@@ -23,6 +23,11 @@ on the mesh's home device.
 Per-frame k varies with density, so lanes are computed to
 ``MAX_LANES`` and masked per frame (``ops/bloom_core`` lane-masked
 variants).
+
+As in the JAX package, these programs run in one process: a mesh whose
+cells belong to several processes reaches the blocked, planar and
+byte-view paths only, and every factory here raises ``ValueError`` for
+one.
 """
 
 from __future__ import annotations
@@ -55,6 +60,14 @@ _TABLES = (TAB,) * 6
 _SCALARS = (DP,) * 4
 
 
+def _one_process(mesh: Mesh) -> Mesh:
+    if mesh.multiproc:
+        raise ValueError("the BFV2 mesh programs run in one process; a mesh "
+                         "over several processes serves the blocked, planar "
+                         "and byte-view paths")
+    return mesh
+
+
 def _offsets(counts: torch.Tensor) -> torch.Tensor:
     """Exclusive scan over shards of (B, S) per-shard counts."""
     return torch.cumsum(counts, 1) - counts
@@ -84,6 +97,7 @@ def make_sharded_encode(mesh: Mesh, n: int, l_pad: int):
     (h1 hi, h1 lo, h2 hi, h2 lo, act hi, act lo), l, t_hi, t_lo,
     floor_k (B,)) -> (bit_arrays (B, l_pad) u8, witness (B, n) u8,
     counts (B,) i32), all on the mesh's home device."""
+    _one_process(mesh)
     sizes = _shard_sizes(n, mesh.shape["sp"])
 
     def insert(bits, h1, h2, act, l, thi, tlo, fk):
@@ -137,6 +151,7 @@ def make_sharded_decode(mesh: Mesh, n: int, l_pad: int):
 
     Returns fn(bit_arrays (B, l_pad), witness (B, n), tables, l, t_hi,
     t_lo, floor_k) -> bits (B, n) u8 on the mesh's home device."""
+    _one_process(mesh)
 
     def member(bit_arrays, h1, h2, act, l, thi, tlo, fk):
         pmask = membership_lanes(bit_arrays, h1, h2, act, l, thi, tlo, fk,
@@ -166,6 +181,7 @@ def make_gop_masks_dp(mesh: Mesh):
 
     Returns fn(prev (B,h,w[,c]) u8, curr (B,h,w[,c]) u8)
       -> (masks (B,n8) u8, packed (B,n8/8) u8, counts (B,) i32)."""
+    _one_process(mesh)
     def masks(prev, curr):
         return run_sharded(mesh, gop_mod.gop_masks_pairs, (prev, curr),
                            (DP, DP), block_axis=False)
@@ -176,6 +192,7 @@ def make_gop_encode_dp(mesh: Mesh, *, l_pad: int, vmax: int):
     """Frame-sharded chunk Bloom encode over 'dp': frames, masks and
     per-frame scalars shard their leading axis; the hash tables
     replicate.  Same signature and returns as ``models.gop.gop_encode``."""
+    _one_process(mesh)
     fn = _flat_tables(partial(gop_mod.gop_encode, l_pad=l_pad, vmax=vmax),
                       2)
 
@@ -192,6 +209,7 @@ def make_gop_decode_fields_dp(mesh: Mesh, *, n: int, vmax: int):
     """Frame-sharded decode fields of BFV2 records: membership, witness
     expansion and value gather shard over 'dp'; only the short
     sequential ``gop_chain`` runs unsharded afterwards."""
+    _one_process(mesh)
     fn = _flat_tables(partial(gop_mod.gop_decode_fields, n=n, vmax=vmax),
                       4)
 
@@ -209,6 +227,7 @@ def shard_batch_arrays(mesh: Mesh, bits, tables, scalars):
     (dp, sp), each table over sp, each per-frame scalar over dp.
     Returns, for each input, a dp x sp grid of tensors, each on its
     mesh cell's device."""
+    _one_process(mesh)
     dp, sp = mesh.shape["dp"], mesh.shape["sp"]
 
     def place(x, spec):

@@ -21,11 +21,24 @@ after the work on each card.  Shards
 with no frame or no block are not launched.  Where JAX's ``shard_map``
 needed equal shards, and the pipeline padded for it, nothing is padded
 here.
+
+On a mesh whose cells belong to several processes
+(``parallel.mesh.initialize_distributed``) every process makes the same
+call on identical arguments and runs only the shards of its own cells;
+their outputs then reach every process (:func:`_exchange`: two
+collectives a call, whatever the number of cells and outputs), so each
+returns the full result on its own home device.  This is the
+counterpart of the JAX package's ``process_allgather(a, tiled=True)``.
+Collectives are matched by call order: a process issues these calls
+from one thread, in the same order as every other process.
 """
 
 from __future__ import annotations
 
 from functools import partial
+import contextlib
+import math
+import time
 from typing import Callable, Sequence
 
 import torch
@@ -52,12 +65,133 @@ def _pieces(x: torch.Tensor, spec, dp: int, sp: int):
     return [[x] * sp] * dp
 
 
+_DTYPES = (torch.uint8, torch.bool, torch.int32, torch.int64)
+_MAX_OUT, _MAX_DIM, _ALIGN = 8, 4, 16
+
+# The cross-process hop since the last reset_hop(): seconds on the
+# host's clock (started once the process's own shards are computed), of
+# which wait_seconds in the first collective (the table of shapes, a
+# few hundred bytes: the time until the last process arrives), calls,
+# and bytes this process received.
+_HOP = {"seconds": 0.0, "wait_seconds": 0.0, "calls": 0, "bytes": 0}
+_PINNED: dict = {}
+
+
+def hop_stats() -> dict:
+    """Seconds (and those spent waiting for the other processes), calls
+    and received bytes of the cross-process hop."""
+    return dict(_HOP)
+
+
+def reset_hop() -> None:
+    _HOP.update(seconds=0.0, wait_seconds=0.0, calls=0, bytes=0)
+
+
+def _pinned(slot, nbytes: int) -> torch.Tensor:
+    """A pinned host buffer of at least ``nbytes``, kept per slot and
+    grown by doubling: page-locking costs more than the copies."""
+    buf = _PINNED.get(slot)
+    if buf is None or buf.numel() < nbytes:
+        size = max(nbytes, 2 * buf.numel() if buf is not None else 1 << 20)
+        buf = _PINNED[slot] = torch.empty(size, dtype=torch.uint8,
+                                          pin_memory=True)
+    return buf[:nbytes]
+
+
+def _exchange(mesh: Mesh, results: dict, live: Sequence) -> dict:
+    """Give every process the outputs of every live cell.
+
+    ``results`` holds this process's cells, ``{(i, j): tuple of
+    tensors}``; ``live`` lists, alike in every process, the cells that
+    ran somewhere.  Output shapes are not known to the other processes,
+    so a first collective sums a table of every cell's output dtypes and
+    shapes (each process fills in its own rows), and a second gathers
+    one byte buffer a process, padded to the longest.  CUDA buffers go
+    over NCCL between the home cards, or through pinned host memory and
+    gloo (``mesh.transport``); both order themselves after the kernels
+    on the current stream of each card.  Returns ``{cell: outputs}`` on
+    the home device for every live cell."""
+    import torch.distributed as dist
+
+    home = mesh.home
+    if home.type == "cuda":
+        for d in mesh.distinct_devices():
+            torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    world = dist.get_world_size()
+    owner = {c: mesh.ranks[c[0]][c[1]] for c in live}
+    meta = torch.zeros((len(live), _MAX_OUT, 2 + _MAX_DIM), dtype=torch.int64)
+    for n, c in enumerate(live):
+        outs = results.get(c, ())
+        if len(outs) > _MAX_OUT or any(o.ndim > _MAX_DIM for o in outs):
+            raise ValueError("a sharded function returns at most "
+                             f"{_MAX_OUT} tensors of {_MAX_DIM} axes")
+        for k, o in enumerate(outs):
+            meta[n, k, 0] = 1 + _DTYPES.index(o.dtype)
+            meta[n, k, 1] = o.ndim
+            meta[n, k, 2:2 + o.ndim] = torch.tensor(o.shape)
+    dist.all_reduce(meta)                      # CPU tensor: gloo
+    _HOP["wait_seconds"] += time.perf_counter() - t0
+    meta = meta.tolist()
+
+    # every process derives the same layout of every rank's buffer
+    layout, fill = {}, [0] * world
+    for n, c in enumerate(live):
+        specs = []
+        for row in meta[n]:
+            if row[0] == 0:
+                break
+            dtype, shape = _DTYPES[row[0] - 1], tuple(row[2:2 + row[1]])
+            nbytes = dtype.itemsize * math.prod(shape)
+            specs.append((dtype, shape, fill[owner[c]], nbytes))
+            fill[owner[c]] += -(-nbytes // _ALIGN) * _ALIGN
+        layout[c] = specs
+    size = max(fill)
+    if size == 0:
+        raise RuntimeError("no process reported an output of a live cell")
+
+    with (torch.cuda.device(home) if home.type == "cuda"
+          else contextlib.nullcontext()):
+        mine = torch.zeros(size, dtype=torch.uint8, device=home)
+        for c, outs in results.items():
+            for o, (_, _, off, nbytes) in zip(outs, layout[c]):
+                mine[off:off + nbytes] = (
+                    o.to(home).reshape(-1).view(torch.uint8))
+        if mesh.transport == "gloo-staged":
+            send = _pinned("send", size)
+            send.copy_(mine)                   # blocks until it has landed
+            recv = [_pinned(("recv", r), size) for r in range(world)]
+            dist.all_gather(recv, send)
+            bufs = [b.to(home, non_blocking=True) for b in recv]
+        else:                                  # gloo (CPU) or nccl (CUDA)
+            bufs = [torch.empty_like(mine) for _ in range(world)]
+            dist.all_gather(bufs, mine)
+        full = {}
+        for c in live:
+            if c in results:
+                full[c] = tuple(o.to(home) for o in results[c])
+                continue
+            buf = bufs[owner[c]]
+            full[c] = tuple(
+                buf[off:off + nbytes].view(dtype).reshape(shape)
+                for dtype, shape, off, nbytes in layout[c])
+        if mesh.transport == "gloo-staged":
+            # the pinned buffers are reused by the next call
+            torch.cuda.current_stream().synchronize()
+    _HOP["seconds"] += time.perf_counter() - t0
+    _HOP["calls"] += 1
+    _HOP["bytes"] += size * (world - 1)
+    return full
+
+
 def run_sharded(mesh: Mesh, fn: Callable, args: Sequence, specs: Sequence,
                 *, block_axis: bool) -> tuple:
     """Call ``fn`` on every non-empty shard of ``args`` laid out by
     ``specs`` and gather its outputs (a tuple of tensors, frames on axis
     0, and with ``block_axis`` blocks on axis 1) on the home device.
-    Without ``block_axis`` only the mesh's first sp column runs."""
+    Without ``block_axis`` only the mesh's first sp column runs.  Across
+    processes each runs its own cells and every process gets the full
+    outputs (module docstring)."""
     if len(args) != len(specs):
         raise TypeError(f"expected {len(specs)} arguments, got {len(args)}")
     dp = mesh.shape["dp"]
@@ -72,16 +206,20 @@ def run_sharded(mesh: Mesh, fn: Callable, args: Sequence, specs: Sequence,
             copies[key] = x.to(dev).contiguous()
         return copies[key]
 
-    results = {}
-    for i in range(dp):
-        for j in range(sp):
-            cell = [p[i][j] for p in pieces]
-            if any(c.numel() == 0 for c, s in zip(cell, split) if s):
-                continue
-            dev = mesh.devices[i][j]
-            results[i, j] = fn(*(move(c, dev) for c in cell))
-    if not results:                 # nothing to shard: run unsharded
+    # which cells have work follows from the argument shapes alone, so
+    # every process of a mesh finds the same ones
+    live = [(i, j) for i in range(dp) for j in range(sp)
+            if not any(p[i][j].numel() == 0
+                       for p, s in zip(pieces, split) if s)]
+    if not live:                    # nothing to shard: run unsharded
         return tuple(fn(*(move(a, mesh.home) for a in args)))
+    results = {}
+    for i, j in live:
+        if mesh.ranks[i][j] == mesh.rank:
+            dev = mesh.devices[i][j]
+            results[i, j] = fn(*(move(p[i][j], dev) for p in pieces))
+    if mesh.multiproc:
+        results = _exchange(mesh, results, live)
     n_out = len(next(iter(results.values())))
     home = mesh.home
     outs = []

@@ -89,12 +89,13 @@ def measure_host_stages(frames, reps: int = 2, device=None):
     base, chunk = frames[0], list(frames[1:16])
     enc = bp.BlockedEncoder(device=device)
     dec = bp.BlockedDecoder(device=device)
-    warm, _ = enc.encode_chunk_begin(base, chunk)()
+    warm = []
+    enc.encode_chunk(base, chunk, warm)
     dec.decode_run(base, warm)
     st_enc, st_dec = {}, {}
     for _ in range(reps):
-        payloads, _ = enc.encode_chunk_begin(base, chunk,
-                                             stage_times=st_enc)()
+        payloads = []
+        enc.encode_chunk(base, chunk, payloads, stage_times=st_enc)
         dec.decode_run(base, payloads, stage_times=st_dec)
     fr = len(chunk) * reps
     enc_host = sum(st_enc.get(k, 0.0) for k in ENC_HOST_KEYS) / fr

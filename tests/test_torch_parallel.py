@@ -269,11 +269,23 @@ def test_dryrun_blocked_dp(layout, capsys):
     _assert_same(out["encoded"], want)
 
 
-def test_unported_entry_points_raise():
-    from new_bloom_filter_repo_tpu_torch.parallel.mesh import (
-        initialize_distributed)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        initialize_distributed()
+def test_unported_entry_points_raise(monkeypatch):
+    """No entry point is left unported: ``initialize_distributed``, the
+    last, now joins a process group (tests/test_torch_distributed.py).
+    It still raises where it must: without arguments and without the
+    rendezvous variables in the environment, and, asked for the card as
+    by default, without one."""
+    from new_bloom_filter_repo_tpu_torch.parallel import mesh
+
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="environment variable"):
+        mesh.initialize_distributed(device_type="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            mesh.initialize_distributed()
+    assert not torch.distributed.is_initialized()
+    assert mesh._DIST is None
 
 
 def test_auto_mesh_raises_without_enough_cards():

@@ -16,6 +16,7 @@ from new_bloom_filter_repo_tpu.models import blocked_pipeline as jbp
 from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as tbp
 from new_bloom_filter_repo_tpu_torch.models import frame_codec as fc
 from new_bloom_filter_repo_tpu_torch.ops import hashtables as tht
+from new_bloom_filter_repo_tpu_torch.utils import container
 from new_bloom_filter_repo_tpu_torch.utils.synthetic import (
     SUITE,
     generate_frames,
@@ -208,3 +209,132 @@ def test_decoder_rejects_out_of_range_m():
     base = np.zeros((48, 64, 3), np.uint8)
     with pytest.raises(ValueError, match="sub-filter width 8"):
         tbp.BlockedDecoder(device="cpu").decode_run(base, [bad])
+
+
+# ---------------------------------------------------------------------------
+# The serial and one-device forms: choose_shifts, _motion_counts,
+# _phase_a_motion, encode_chunk, NBF_OVERLAP=0
+# ---------------------------------------------------------------------------
+
+def _policy_counts():
+    """The reference's shift-policy cases: a clear winner at (2, -1), a
+    best that barely beats the zero shift, a zero count too small to be
+    worth a shift."""
+    side = 2 * tbp.MOTION_RADIUS + 1
+    zero = tbp.MOTION_RADIUS * side + tbp.MOTION_RADIUS
+    win = (tbp.MOTION_RADIUS + 2) * side + (tbp.MOTION_RADIUS - 1)
+    counts = np.full((3, side * side), 1000, np.int64)
+    counts[0, win] = 100
+    counts[1, zero] = 500
+    counts[1, win] = 450
+    counts[2, :] = 10
+    counts[2, win] = 0
+    return counts
+
+
+def _seeded_counts():
+    rng = np.random.default_rng(9)
+    side = 2 * tbp.MOTION_RADIUS + 1
+    counts = rng.integers(0, 400, (40, side * side)).astype(np.int32)
+    counts[::3, rng.integers(0, side * side, 14)] = 0     # exact matches
+    counts[5] = 7                                         # every shift ties
+    return counts
+
+
+@pytest.mark.parametrize("make", [_policy_counts, _seeded_counts],
+                         ids=["policy", "seeded"])
+def test_choose_shifts_matches_jax(make):
+    counts = make()
+    got = tbp.choose_shifts(counts)
+    assert got.dtype == np.int32 and got.shape == (counts.shape[0], 2)
+    np.testing.assert_array_equal(got, jbp.choose_shifts(counts))
+    if make is _policy_counts:
+        assert got.tolist() == [[2, -1], [0, 0], [0, 0]]
+
+
+@pytest.mark.parametrize("name", ["pan_rgb", "pan_gray", "tied"])
+def test_motion_counts_and_phase_a_motion_match_jax(name):
+    """The one-device forms of what ``_MeshDispatch.motion_counts`` and
+    ``.phase_a_motion`` shard, and the two-step shift decision they give
+    with ``choose_shifts``: equal to the fused phase A's."""
+    frames = PHASE_A_CLIPS[name]()
+    stacked = np.stack(frames)
+    h, w = frames[0].shape[:2]
+    npad = tht.npad_of(h * w)
+    nb = npad // tht.IPB
+    stride = tbp.motion_stride(h, w)
+    st = torch.from_numpy(stacked)
+    counts = tbp._motion_counts(st, stride=stride)
+    assert counts.dtype == torch.int32
+    np.testing.assert_array_equal(
+        n(counts), n(jbp._motion_counts(jnp.asarray(stacked), stride=stride)))
+    shifts = tbp.choose_shifts(n(counts))
+    fused = tbp._phase_a_auto(st, stride=stride, npad=npad, nb=nb)
+    np.testing.assert_array_equal(shifts, n(fused[3]))
+    got = tbp._phase_a_motion(st, torch.from_numpy(shifts), npad=npad, nb=nb)
+    want = jbp._phase_a_motion(jnp.asarray(stacked), jnp.asarray(shifts),
+                               npad=npad, nb=nb)
+    for g, w_, f_ in zip(got, want, fused):
+        assert n(g).dtype == n(w_).dtype
+        np.testing.assert_array_equal(n(g), n(w_))
+        np.testing.assert_array_equal(n(g), n(f_))
+    zero = tbp._phase_a_motion(st, torch.zeros((len(frames) - 1, 2),
+                                               dtype=torch.int32),
+                               npad=npad, nb=nb)
+    for g, w_ in zip(zero, tbp._phase_a(st, npad=npad, nb=nb)):
+        assert torch.equal(g, w_)
+
+
+@pytest.mark.parametrize("name", ["pan_rgb", "scene_cuts_rgb"])
+def test_encode_chunk_matches_begin_and_jax(name):
+    frames = CHUNK_CLIPS[name]()
+    base, chunk = frames[0], frames[1:]
+
+    def keyframe_fn(j):
+        return fc.encode_keyframe_best(chunk[j], None, zlib_level=6)
+
+    sink = [b"kept"]
+    times = {}
+    kf = tbp.BlockedEncoder(device="cpu").encode_chunk(
+        base, chunk, sink, keyframe_fn, stage_times=times)
+    begin, begin_kf = tbp.BlockedEncoder(device="cpu").encode_chunk_begin(
+        base, chunk, keyframe_fn)()
+    want = []
+    want_kf = jbp.BlockedEncoder().encode_chunk(base, chunk, want,
+                                                keyframe_fn)
+    assert sink[0] == b"kept" and sink[1:] == begin == want
+    assert kf == begin_kf == want_kf
+    assert "enc_device_phase_a" in times and "enc_assembly" in times
+
+
+def test_overlap_off_writes_the_same_bytes(tmp_path, monkeypatch):
+    """``NBF_OVERLAP=0`` (every host phase inline) against the default
+    worker schedule and against the JAX package, on a clip with a
+    scheduled keyframe in the middle and three chunks a run."""
+    from new_bloom_filter_repo_tpu.models.video import (
+        ImprovedVideoCompressor as JaxCompressor)
+    from new_bloom_filter_repo_tpu_torch.models.video import (
+        ImprovedVideoCompressor)
+
+    frames = clip("pan", f=13)
+    blobs = {}
+    for overlap in ("1", "0"):
+        monkeypatch.setenv("NBF_OVERLAP", overlap)
+        path = str(tmp_path / f"o{overlap}.bfvc")
+        comp = ImprovedVideoCompressor(device="cpu", keyframe_interval=6,
+                                       batch_size=2)
+        comp.compress_video(frames, path, input_color_space="BGR")
+        with open(path, "rb") as fh:
+            blobs[overlap] = fh.read()
+        for got, src in zip(comp.decompress_video(path), frames):
+            np.testing.assert_array_equal(np.asarray(got), src)
+    monkeypatch.setenv("NBF_OVERLAP", "0")
+    path = str(tmp_path / "jax.bfvc")
+    JaxCompressor(keyframe_interval=6, batch_size=2).compress_video(
+        frames, path, input_color_space="BGR")
+    with open(path, "rb") as fh:
+        blobs["jax"] = fh.read()
+    assert blobs["0"] == blobs["1"] == blobs["jax"]
+    records = [fc.record_type(p) for p in
+               container.read_bfvc(str(tmp_path / "o0.bfvc"))[1]]
+    assert len(records) == 13 and fc.MOTION in records
