@@ -114,7 +114,25 @@ its plain PyTorch twin on the card.  Phases:
     and bytes of the cross-process hop.  Both children's files must
     equal the single-device files of phases 3-4 byte for byte.  A child
     that exits non-zero, outlives 300 s or writes another file fails
-    the run.
+    the run;
+15. damaged streams through the kernels: the parent writes damaged
+    files and a manifest, and one child of this script
+    (``--damaged-child MANIFEST``) decodes each on cuda:0 and prints one
+    line a trial (its outcome, the sha256 of its frames, the k_lanes of
+    each K2 launch).  A trial that prints nothing within 60 s (a hung
+    kernel), a child that dies and a CUDA fault (uncaught: the child
+    synchronises after every trial) fail the run, naming the trial's
+    field and seed.  CIF (352x288, 16 frames) blocked static and pan,
+    bfv2, planar I420 and uint16 streams, each with 8 seeded random
+    flips (the JAX package's recipe) and edits of the first inter
+    record's k (40.5, 2e6), m, bitmap_bits, witness_bits and type-6
+    shift (+-32767): every outcome and frame hash must equal the port's
+    CPU decode of the same bytes in the parent.  The 1080p files of
+    phases 3-4 with k = 40.5, k = 2e6 and 4 flips each: each must end,
+    K2 never past 32 lanes; the k trials also against a CPU decode where
+    the time allows.  Then the child decodes the clean 1080p static file
+    bit-exactly after a synchronize, and K2, K3 and K4 must each have
+    run on damaged input.
 
 Phases 8-11 time each round trip once as it is (the path's fps) and
 then once more under a stage timer, which synchronises the card around
@@ -140,7 +158,9 @@ this script put at the root of another checkout (an older commit)
 times that checkout's kernels the same way, in the same call.
 ``--mesh-processes-only`` runs phases 1, 3-4 and 14 and prints no JSON:
 the call to make on a machine with several cards, where phase 14 takes
-NCCL between two cards.
+NCCL between two cards.  ``--damaged-only`` runs phases 1 and 15 on the
+CIF streams alone (its clean stream is the CIF static one) and prints
+no JSON.
 """
 
 from __future__ import annotations
@@ -1818,6 +1838,342 @@ def phase_mesh_processes(tmp, card, refs):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: damaged streams through the kernels
+# ---------------------------------------------------------------------------
+
+TRIAL_LIMIT_S = 60     # a damaged decode that prints nothing this long hangs
+CHILD_START_S = 180    # the child's imports and CUDA start-up
+CPU_1080P_START_S = 100  # latest start of a 1080p CPU decode in the phase
+CPU_JOIN_S = 300         # the phase waits this long for its CPU decodes
+DAMAGED_KERNELS = ("blocked_membership_h", "blocked_expand_chain",
+                   "blocked_expand")
+CUDA_FAULTS = ("CUDA error", "illegal memory access", "device-side assert",
+               "illegal instruction", "launch failed")
+
+
+def frames_digest(frames) -> str:
+    """sha256 over every frame's shape, dtype and bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in frames:
+        a = np.ascontiguousarray(np.asarray(f))
+        h.update(f"{a.shape}{a.dtype.str}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def decode_outcome(path, device):
+    """("frames", sha256) or ("raise", message) of the port's decode of
+    ``path`` on ``device``."""
+    from new_bloom_filter_repo_tpu_torch.models.video import (
+        ImprovedVideoCompressor)
+
+    try:
+        frames = ImprovedVideoCompressor(
+            device=device, verbose=False).decompress_video(path)
+    except Exception as exc:                 # the contract: raise, or frames
+        if any(s in str(exc) for s in CUDA_FAULTS):
+            raise
+        return "raise", f"{type(exc).__name__}: {exc}"[:160]
+    return "frames", frames_digest(frames)
+
+
+def inter_record(payloads):
+    """(index, offset of the inner type byte, inner type) of the first
+    record K2 or the gop stages decode: blocked (3, 7, 12) or type 0 with
+    a witness, maybe behind a type-6 header."""
+    import struct
+
+    for i, p in enumerate(payloads):
+        off = 5 if p[0] == 6 and len(p) > 5 else 0
+        t = p[off]
+        if t in (3, 7, 12) or (
+                t == 0 and struct.unpack_from("<I", p, off + 17)[0]):
+            return i, off, t
+    raise AssertionError("stream has no blocked or type-0 record")
+
+
+def damaged_trials(blob, flips, fields=True):
+    """(field, seed, bytes) trials of one stream: ``flips`` seeded random
+    flips (the JAX package's recipe: three bytes past the container
+    header, each XORed with a non-zero byte) and, with ``fields``, edits
+    of the first inter record's k, m, bitmap_bits, witness_bits and
+    type-6 shift."""
+    import struct
+
+    from new_bloom_filter_repo_tpu_torch.models.blocked_pipeline import (
+        npad_of)
+    from new_bloom_filter_repo_tpu_torch.utils import container
+
+    out = []
+    for seed in range(flips):
+        rng = np.random.default_rng(seed)
+        bad = bytearray(blob)
+        for _ in range(3):
+            bad[int(rng.integers(16, len(bad)))] ^= int(rng.integers(1, 256))
+        out.append(("random flips", seed, bytes(bad)))
+    magic, payloads = container.parse_bfvc(blob)
+    i, off, t = inter_record(payloads)
+    nb = npad_of(struct.unpack_from("<I", payloads[i], off + 5)[0]) // 1024
+    edits = [("k = 40.5", off + 9, struct.pack("<f", 40.5)),
+             ("k = 2e6", off + 9, struct.pack("<f", 2e6))]
+    if fields:
+        if t != 0:
+            edits.append(("m = 16", off + 13, struct.pack("<I", 16 * nb)))
+        edits += [("bitmap_bits = 2^32 - 1", off + 13,
+                   struct.pack("<I", 0xFFFFFFFF)),
+                  ("witness_bits = 0", off + 17, struct.pack("<I", 0))]
+        if off:
+            edits += [("shift (32767, -32767)", 1,
+                       struct.pack("<hh", 32767, -32767)),
+                      ("shift (-32767, 32767)", 1,
+                       struct.pack("<hh", -32767, 32767))]
+    for field, at, new in edits:
+        rec = bytearray(payloads[i])
+        rec[at:at + len(new)] = new
+        edited = list(payloads)
+        edited[i] = bytes(rec)
+        out.append((f"record {i} {field}", None,
+                    container.serialize_bfvc(edited, magic)))
+    return out
+
+
+def damaged_child(manifest_path: str) -> int:
+    """Phase 15's child: decodes each damaged file of the manifest on
+    cuda:0 through the kernels and prints one JSON line a trial; then the
+    clean stream, after a synchronize, and its launch counts."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+
+    with open(manifest_path) as fh:
+        manifest = json.load(fh)
+    dev = torch.device(manifest["device"])
+    lanes = []
+    launch = bk._launch
+
+    def recording(name, args, device):
+        if name == "nbf_k2_membership":
+            lanes.append(args[-3])          # ..., f_, nb, k_lanes, nw, fpc
+        return launch(name, args, device)
+
+    bk._launch = recording
+    bk.reset_launches()
+    print(json.dumps({"ready": torch.cuda.get_device_name(dev)}), flush=True)
+    for trial in manifest["trials"]:
+        lanes.clear()
+        t0 = time.perf_counter()
+        outcome, detail = decode_outcome(trial["path"], dev)
+        # a fault of this trial's kernels surfaces here, uncaught
+        torch.cuda.synchronize(dev)
+        print(json.dumps({"id": trial["id"], "outcome": outcome,
+                          "detail": detail, "k_lanes": lanes,
+                          "seconds": time.perf_counter() - t0}), flush=True)
+    damaged = bk.launches()
+    outcome, detail = decode_outcome(manifest["clean"], dev)
+    torch.cuda.synchronize(dev)
+    print(json.dumps({"clean": outcome, "detail": detail,
+                      "damaged_launches": damaged,
+                      "launches": bk.launches()}), flush=True)
+    return 0
+
+
+def damaged_streams(dev, tmp):
+    """Phase 15's CIF streams (352x288, 16 frames), written on the card:
+    blocked static and pan, bfv2, planar I420 and the uint16 byte view."""
+    from new_bloom_filter_repo_tpu_torch.models.video import (
+        ImprovedVideoCompressor)
+    from new_bloom_filter_repo_tpu_torch.utils.synthetic import (
+        SUITE, generate_frames)
+
+    static = generate_frames(16, 352, 288, seed=0, **SUITE["static_gentle"])
+    pan = generate_frames(16, 352, 288, seed=0, **SUITE["pan"])
+    variants = [("blocked static", static, "BGR", {}),
+                ("blocked pan", pan, "BGR", {}),
+                ("bfv2", static, "BGR", {"profile": "bfv2"}),
+                ("planar I420", i420_from(static), "YUV",
+                 {"profile": "planar"}),
+                ("uint16 byte view",
+                 [f.astype(np.uint16) * 4 + 3 for f in static], "BGR", {})]
+    out = {}
+    for name, frames, cs, kw in variants:
+        path = os.path.join(tmp, f"clean {name}.bfvc")
+        ImprovedVideoCompressor(device=dev, **kw).compress_video(
+            frames, path, input_color_space=cs)
+        with open(path, "rb") as fh:
+            out[name] = (fh.read(), frames)
+    return out
+
+
+def phase_damaged(dev, tmp, card, full_size=None):
+    """Phase 15.  ``full_size``: {"static": (bytes, frames), "pan":
+    (bytes, frames)} of phases 3-4, or None for the short form (CIF only,
+    the clean CIF static stream last)."""
+    import queue
+    import threading
+
+    t_phase = time.perf_counter()
+    ddir = os.path.join(tmp, "damaged")
+    os.makedirs(ddir, exist_ok=True)
+    cif = damaged_streams(dev, ddir)
+    trials = []
+    for name, (blob, _) in cif.items():
+        trials += [("CIF", name, *t) for t in damaged_trials(blob, 8)]
+    if full_size is not None:
+        for name in ("static", "pan"):
+            blob = full_size[name][0]
+            trials += [("1080p", name, *t)
+                       for t in damaged_trials(blob, 4, fields=False)]
+        clean_path = os.path.join(ddir, "clean static 1080p.bfvc")
+        with open(clean_path, "wb") as fh:
+            fh.write(full_size["static"][0])
+        clean_frames = full_size["static"][1]
+    else:
+        clean_path = os.path.join(ddir, "clean blocked static.bfvc")
+        clean_frames = cif["blocked static"][1]
+    manifest = {"trials": [], "clean": clean_path,
+                "device": "cuda:0" if dev.type == "cuda" else str(dev)}
+    for i, (size, name, field, seed, blob) in enumerate(trials):
+        path = os.path.join(ddir, f"trial{i}.bfvc")
+        with open(path, "wb") as fh:
+            fh.write(blob)
+        manifest["trials"].append({"id": i, "size": size, "stream": name,
+                                   "field": field, "seed": seed,
+                                   "path": path})
+    man_path = os.path.join(ddir, "manifest.json")
+    with open(man_path, "w") as fh:
+        json.dump(manifest, fh)
+    log(f"  {len(trials)} damaged files ({sum(t[0] == 'CIF' for t in trials)}"
+        f" CIF, {sum(t[0] == '1080p' for t in trials)} 1080p) written in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+    # the port's CPU decodes of the same bytes, beside the child: every
+    # CIF trial, and the 1080p k trials that start in time
+    cpu = {}
+
+    def cpu_decodes(size):
+        for tr in manifest["trials"]:
+            if tr["size"] != size:
+                continue
+            if size == "1080p" and (
+                    not tr["field"].endswith(("k = 40.5", "k = 2e6"))
+                    or time.perf_counter() - t_phase > CPU_1080P_START_S):
+                continue
+            t0 = time.perf_counter()
+            cpu[tr["id"]] = (*decode_outcome(tr["path"], "cpu"),
+                             time.perf_counter() - t0)
+
+    workers = [threading.Thread(target=cpu_decodes, args=(size,),
+                                daemon=True) for size in ("CIF", "1080p")]
+    for w in workers:
+        w.start()
+    lines = queue.Queue()
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--damaged-child",
+         man_path], stdout=subprocess.PIPE, text=True, cwd=REPO)
+
+    def pump():
+        for line in child.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    results, seen = {}, []
+
+    def next_report(limit, waiting_for):
+        deadline = time.perf_counter() + limit
+        while True:
+            left = deadline - time.perf_counter()
+            try:
+                line = lines.get(timeout=max(0.1, left))
+            except queue.Empty:
+                child.kill()
+                raise AssertionError(f"phase 15: the child printed nothing "
+                                     f"for {limit} s while decoding "
+                                     f"{waiting_for}") from None
+            if line is None:
+                child.wait()
+                raise AssertionError(
+                    f"phase 15: the child died (exit {child.returncode}) "
+                    f"while decoding {waiting_for}: {''.join(seen[-20:])}")
+            seen.append(line)
+            if line.startswith("{"):
+                return json.loads(line)
+
+    try:
+        ready = next_report(CHILD_START_S, "nothing yet (start-up)")
+        log(f"  child on {ready['ready']}")
+        for tr in manifest["trials"]:
+            what = (f"trial {tr['id']} ({tr['size']} {tr['stream']}, "
+                    f"{tr['field']}, seed {tr['seed']})")
+            rep = next_report(TRIAL_LIMIT_S, what)
+            results[rep["id"]] = rep
+        closing = next_report(TRIAL_LIMIT_S, "the clean stream")
+        if child.wait(timeout=TRIAL_LIMIT_S) != 0:
+            raise AssertionError(f"phase 15: the child exited with "
+                                 f"{child.returncode}")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    for w in workers:
+        w.join(timeout=max(1.0, CPU_JOIN_S - (time.perf_counter() - t_phase)))
+    if workers[0].is_alive():
+        raise AssertionError("phase 15: the CPU decodes of the CIF trials "
+                             "did not finish")
+    if workers[1].is_alive():
+        log("  the last 1080p CPU decode did not finish in time: its trial "
+            "is held to termination and k_lanes only")
+
+    mix = {}
+    for tr in manifest["trials"]:
+        rep = results[tr["id"]]
+        what = (f"trial {tr['id']} ({tr['size']} {tr['stream']}, "
+                f"{tr['field']}, seed {tr['seed']})")
+        if max(rep["k_lanes"], default=0) > 32:
+            raise AssertionError(f"{what}: K2 launched with k_lanes "
+                                 f"{rep['k_lanes']}")
+        key = (tr["size"], tr["stream"])
+        mix.setdefault(key, {"frames": 0, "raise": 0, "max_s": 0.0})
+        mix[key][rep["outcome"]] += 1
+        mix[key]["max_s"] = max(mix[key]["max_s"], rep["seconds"])
+        against = "not compared with a CPU decode"
+        if tr["id"] in cpu:
+            want, want_detail, cpu_s = cpu[tr["id"]]
+            if rep["outcome"] != want or (
+                    want == "frames" and rep["detail"] != want_detail):
+                raise AssertionError(
+                    f"{what}: the card {rep['outcome']} ({rep['detail']}), "
+                    f"the CPU {want} ({want_detail})")
+            against = (f"the port's CPU decode of the same file agrees "
+                       f"({cpu_s:.2f} s)")
+        if tr["size"] == "1080p":
+            log(f"  {what}: {rep['outcome']} on the card in "
+                f"{rep['seconds']:.3f} s, K2 k_lanes {rep['k_lanes']}; "
+                f"{against}")
+    for (size, name), m in mix.items():
+        log(f"  {size} {name}: {m['frames']} trials returned frames, "
+            f"{m['raise']} raised; slowest card decode {m['max_s']:.2f} s")
+    compared = sum(1 for t in manifest["trials"] if t["id"] in cpu)
+    log(f"  {compared} trials held to the port's CPU decode of the same "
+        f"bytes (outcome, and the frames' sha256), every CIF trial among "
+        f"them; every K2 launch had k_lanes <= 32")
+    if closing["clean"] != "frames" or closing["detail"] != frames_digest(
+            clean_frames):
+        raise AssertionError(f"phase 15: the clean stream after the damaged "
+                             f"ones did not decode bit-exactly: {closing}")
+    missing = [k for k in DAMAGED_KERNELS
+               if closing["damaged_launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"phase 15: no damaged input reached {missing}")
+    log(f"  after the last damaged trial the clean stream decodes "
+        f"bit-exactly after torch.cuda.synchronize(); launches on damaged "
+        f"input {closing['damaged_launches']}, with the clean decode "
+        f"{closing['launches']}")
+    log(f"  phase 15 took {time.perf_counter() - t_phase:.2f} s ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -1828,6 +2184,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:2] == ["--mesh-child"]:
         return mesh_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--damaged-child"]:
+        return damaged_child(sys.argv[2])
     from new_bloom_filter_repo_tpu_torch.models.video import (
         ImprovedVideoCompressor)
     from new_bloom_filter_repo_tpu_torch.ops import _build
@@ -1854,6 +2212,12 @@ def main() -> int:
         ptxas[name] = (int(regs), int(spills))
         log(f"    ptxas {name}: {regs} registers, {spills} bytes spilled")
 
+    if "--damaged-only" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as tmp:
+            log(f"phase 15 damaged streams through the kernels, CIF only "
+                f"({smi}):")
+            phase_damaged(dev, tmp, smi)
+        return 0
     t0 = time.perf_counter()
     bench = make_bench_clip(31)
     pan = synthetic.generate_frames(31, W, H, seed=0,
@@ -1903,6 +2267,9 @@ def main() -> int:
                                 smi))
         log(f"phase 14 a mesh across two processes ({smi}):")
         runs.append(phase_mesh_processes(tmp, smi, single))
+        log(f"phase 15 damaged streams through the kernels ({smi}):")
+        phase_damaged(dev, tmp, smi, full_size={
+            "static": (single["static"], bench), "pan": (single["pan"], pan)})
     launches = {n: sum(r[n] for r in runs) for n in KERNELS}
 
     kernels = []

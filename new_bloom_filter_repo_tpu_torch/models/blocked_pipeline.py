@@ -559,8 +559,9 @@ def chunk_params(counts: np.ndarray, n: int, nb: int):
     frames' filter scalars m, floor(k) and the u64 activation threshold
     as u32 (hi, lo).  Returns ``(kinds, ks, m_arr, fk_arr, thi, tlo,
     geom)``; ``geom`` holds K1's run-time geometry: ``k_lanes`` (lanes
-    0..max floor(k)), ``nw`` (words covering the largest m) and ``vh``
-    (value rows covering the largest block count).  The bytes do not
+    0..max floor(k), capped as the decoder caps it: ``bk.lane_count``),
+    ``nw`` (words covering the largest m) and ``vh`` (value rows
+    covering the largest block count).  The bytes do not
     depend on the geometry as long as it covers every frame."""
     f = counts.shape[0]
     frame_counts = counts.sum(axis=1)
@@ -597,7 +598,7 @@ def chunk_params(counts: np.ndarray, n: int, nb: int):
         fk_arr[j] = floor_k
         thi[j] = a_hi
         tlo[j] = a_lo
-    geom = {"k_lanes": int(fk_arr.max()),
+    geom = {"k_lanes": bk.lane_count(fk_arr.max()),
             "nw": max(1, (int(m_arr.max()) + 31) // 32),
             "vh": _vh_bucket(max_block)}
     return kinds, ks, m_arr, fk_arr, thi, tlo, geom
@@ -2355,7 +2356,9 @@ class BlockedDecoder:
         h, w = shape[:2]
         dev = self.device
         tab = blocked_tables(h * w, dev)
-        k_lanes = int(parsed["fk_arr"].max())
+        # the stream sets floor(k): cap its lane count as the JAX
+        # decoder does (a damaged k must not set K2's loop)
+        k_lanes = bk.lane_count(parsed["fk_arr"].max())
         nw = max(1, (int(parsed["m_arr"].max()) + 31) // 32)
         words = torch.from_numpy(parsed["words"]).to(dev)
         scalars = frame_scalars(dev, parsed["m_arr"], parsed["thi"],

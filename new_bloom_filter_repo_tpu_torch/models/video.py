@@ -992,7 +992,9 @@ class ImprovedVideoCompressor:
         l_arr = np.ones(b, np.int64)
         thi = np.zeros(b, np.int64)
         tlo = np.zeros(b, np.int64)
-        fk = np.zeros(b, np.int64)
+        # int32, as in the JAX package: a floor(k) past it (a damaged
+        # record) raises OverflowError in both
+        fk = np.zeros(b, np.int32)
         values_list = [None] * b
         vneed = 1
         for j, payload in enumerate(run):

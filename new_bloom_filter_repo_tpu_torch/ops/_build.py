@@ -33,9 +33,15 @@ BUILD_DIR = os.path.join(_REPO_ROOT, "build", "kernels")
 # Most frames one CTA of K1, K2, K5a or K5b walks: it sizes the kernels'
 # shared frame arrays, and ops/blocked.frames_per_cta never asks for more.
 GMAX = 16
+# Most lanes past lane 0 that K1, K2, K5a and K5b run (k_lanes): the JAX
+# package's k_bucket never gives more, so a frame whose floor(k) is
+# larger probes lanes 0..32 in both packages.  Only a damaged stream has
+# such a frame (a valid one has floor(k) <= 12); without the cap its k
+# would set the kernels' loop count.  The entry points refuse more.
+MAX_K_LANES = 32
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              f"-DNBF_GMAX={GMAX}"]
+              f"-DNBF_GMAX={GMAX}", f"-DNBF_MAX_K_LANES={MAX_K_LANES}"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

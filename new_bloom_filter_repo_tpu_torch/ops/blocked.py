@@ -38,7 +38,7 @@ from typing import Dict
 import torch
 
 from new_bloom_filter_repo_tpu_torch.ops import _build
-from new_bloom_filter_repo_tpu_torch.ops._build import GMAX
+from new_bloom_filter_repo_tpu_torch.ops._build import GMAX, MAX_K_LANES
 
 IPB = 1024              # items (pixel indices) per block
 NW = 12                 # u32 sub-filter words per block
@@ -120,6 +120,20 @@ def _prelude(h1, h2, act_hi, act_lo, m, thi, tlo):
     tlo64 = (tlo.to(torch.int64) & _U32).view(f_, 1, 1)
     act = (ahi < thi64) | ((ahi == thi64) & (alo < tlo64))
     return a, b, act
+
+
+def lane_count(max_floor_k: int) -> int:
+    """``k_lanes`` for frames whose largest floor(k) is ``max_floor_k``:
+    that floor(k), within [0, MAX_K_LANES] as the JAX package's
+    ``k_bucket`` bounds it.  A frame with a larger floor(k), which only a
+    damaged stream carries, then probes lanes 0..MAX_K_LANES, as in the
+    JAX package; a negative floor(k) activates no lane in either."""
+    return min(max(int(max_floor_k), 0), MAX_K_LANES)
+
+
+def _check_k_lanes(k_lanes: int) -> None:
+    if not 0 <= k_lanes <= MAX_K_LANES:
+        raise ValueError(f"k_lanes={k_lanes} outside [0, {MAX_K_LANES}]")
 
 
 def _lanes(a, b, m64, act, floor_k, k_lanes):
@@ -355,21 +369,24 @@ def blocked_encode_h(bits, h1, h2, act_hi, act_lo, vals, m, thi, tlo,
       vals: (F, NB, IPB) int32 — 24-bit packed pixel values.
       m, thi, tlo, floor_k: (F,) int32 per-frame sub-filter bits,
         activation threshold halves (u32 bit patterns) and floor(k).
-      k_lanes: lanes 0..k_lanes run (>= the largest floor_k).
+      k_lanes: lanes 0..k_lanes run (>= the largest floor_k, or
+        MAX_K_LANES; :func:`lane_count`).
       vh: value segments hold vh*32 slots per block.
       nw: sub-filter words per block (32*nw >= the largest m).
 
     Returns (words (F,NB,nw) i32 PACKED sub-filter words,
              wit (F,NB,128) u8, wcnt (F,NB) i32,
              vseg (F,NB,vh*32) i32, vcnt (F,NB) i32).
+    Raises ValueError for k_lanes outside [0, MAX_K_LANES].
     """
+    _check_k_lanes(k_lanes)
     if _on_cpu(bits):
         return blocked_encode_h_ref(bits, h1, h2, act_hi, act_lo, vals, m,
                                     thi, tlo, floor_k, k_lanes=k_lanes,
                                     vh=vh, nw=nw)
     f_, nb, _ = bits.shape
-    if not (1 <= nw <= NW and 1 <= vh <= 32 and k_lanes >= 0):
-        raise ValueError(f"bad geometry nw={nw} vh={vh} k_lanes={k_lanes}")
+    if not (1 <= nw <= NW and 1 <= vh <= 32):
+        raise ValueError(f"bad geometry nw={nw} vh={vh}")
     dev = bits.device
     outs = _encode_outputs(f_, nb, nw, vh, dev)
     ptrs = _cuda_args(dev, {
@@ -393,14 +410,14 @@ def blocked_membership_h(words, h1, h2, act_hi, act_lo, m, thi, tlo,
     words: (F, NB, nw..NW) i32 PACKED sub-filter words; flags: (F,) i32 —
     1 for pass-through/sparse/empty records (passes forced to 0).
     Returns (passes (F,NB,IPB) u8, wcnt (F,NB) i32); the per-block pass
-    count is summed inside the kernel."""
+    count is summed inside the kernel.  Raises ValueError for k_lanes
+    outside [0, MAX_K_LANES]."""
+    _check_k_lanes(k_lanes)
     if _on_cpu(words):
         return blocked_membership_h_ref(words, h1, h2, act_hi, act_lo, m,
                                         thi, tlo, floor_k, flags,
                                         k_lanes=k_lanes, nw=nw)
     _check_words(words, nw)
-    if k_lanes < 0:
-        raise ValueError(f"bad k_lanes={k_lanes}")
     f_, nb, wstride = words.shape
     dev = words.device
     passes = torch.empty((f_, nb, IPB), dtype=torch.uint8, device=dev)
@@ -443,12 +460,13 @@ def blocked_encode(bits, a, b, act, vals, m, floor_k, *, k_lanes: int,
 
     Returns what :func:`blocked_encode_h` returns; on the tables of
     ``_frame_mod_tables`` the two are equal."""
+    _check_k_lanes(k_lanes)
     if _on_cpu(bits):
         return blocked_encode_ref(bits, a, b, act, vals, m, floor_k,
                                   k_lanes=k_lanes, vh=vh, nw=nw)
     f_, nb, _ = bits.shape
-    if not (1 <= nw <= NW and 1 <= vh <= 32 and k_lanes >= 0):
-        raise ValueError(f"bad geometry nw={nw} vh={vh} k_lanes={k_lanes}")
+    if not (1 <= nw <= NW and 1 <= vh <= 32):
+        raise ValueError(f"bad geometry nw={nw} vh={vh}")
     dev = bits.device
     outs = _encode_outputs(f_, nb, nw, vh, dev)
     ptrs = _cuda_args(dev, {
@@ -475,12 +493,11 @@ def blocked_membership(words, a, b, act, m, floor_k, flags, *,
     i32 (< m); act: (F,NB,IPB) u8; m, floor_k, flags: (F,) i32.
     Returns (passes (F,NB,IPB) u8, wcnt (F,NB) i32); the per-block pass
     count is summed inside the kernel (an XLA pass on the TPU)."""
+    _check_k_lanes(k_lanes)
     if _on_cpu(words):
         return blocked_membership_ref(words, a, b, act, m, floor_k, flags,
                                       k_lanes=k_lanes, nw=nw)
     _check_words(words, nw)
-    if k_lanes < 0:
-        raise ValueError(f"bad k_lanes={k_lanes}")
     f_, nb, wstride = words.shape
     dev = words.device
     passes = torch.empty((f_, nb, IPB), dtype=torch.uint8, device=dev)

@@ -72,6 +72,25 @@ def _mod(h, l):
     return ((hi % l) * ((1 << 32) % l) + lo % l) % l
 
 
+def _mod_u32(h, l):
+    """What the JAX package's ``u64_mod_u32`` computes for any u32 l,
+    valid or not: a long division in 4-bit steps whose running remainder
+    wraps at 2**32 once l >= 2**28, and x % 0 = 0 (XLA).  Equal to
+    :func:`_mod` for 0 < l < MAX_MODULUS, where every stream's l lies;
+    a damaged record's l may lie outside."""
+    one = torch.where(l == 0, 1, l)
+    r = torch.zeros_like(h[0])
+    for half in h:
+        for j in range(8):
+            r = (((r << 4) | ((half >> (28 - 4 * j)) & 0xF)) & _U32) % one
+    return torch.where(l == 0, 0, r)
+
+
+def _outside_modulus(l) -> bool:
+    """Whether any l is 0 or at least MAX_MODULUS (a damaged record)."""
+    return bool(((l == 0) | (l >= MAX_MODULUS)).any())
+
+
 def _prelude(h1, h2, act, l, t_hi, t_lo):
     """a = h1 mod l, b = h2 mod l and the activation test act < T, for
     every index (and frame, when the scalars are per-frame)."""
@@ -80,16 +99,19 @@ def _prelude(h1, h2, act, l, t_hi, t_lo):
     thi = _scalar(t_hi, dev, u32=True)
     tlo = _scalar(t_lo, dev, u32=True)
     activated = (act[0] < thi) | ((act[0] == thi) & (act[1] < tlo))
-    return _mod(h1, l), _mod(h2, l), l, activated
+    mod = _mod_u32 if _outside_modulus(l) else _mod
+    return mod(h1, l), mod(h2, l), l, activated
 
 
 def lane_positions_masked(a, b, l, k_max: int):
     """k_max+1 double-hash lane positions ``(a + j*b) mod l``, built by
-    conditional subtraction (a, b < l)."""
+    conditional subtraction (a, b < l) in u32, as the JAX package builds
+    them: the sum wraps at 2**32, which only an l beyond MAX_MODULUS
+    (a damaged record) can reach."""
     positions = [a]
     cur = a
     for _ in range(k_max):
-        cur = cur + b
+        cur = (cur + b) & _U32
         cur = torch.where(cur >= l, cur - l, cur)
         positions.append(cur)
     return positions
@@ -120,11 +142,21 @@ def _insert(bits, positions, floor_k, activated, l_pad: int):
     return bit_array
 
 
+def _gather_index(pos, width: int):
+    """The bit the JAX package's gather reads for u32 position ``pos`` in
+    a bit array of ``width``: the index clamped to the array, and 0 from
+    2**31 on (XLA takes the index as int32).  Only a damaged record's l
+    puts a position past the array; on a card an unclamped gather would
+    fault."""
+    return torch.where(pos >= (1 << 31), 0, pos.clamp(max=width - 1))
+
+
 def _membership(bit_array, positions, floor_k, activated):
     pass_mask = torch.ones(positions[0].shape, dtype=torch.bool,
                            device=bit_array.device)
+    width = bit_array.shape[-1]
     for j, pos in enumerate(positions):
-        hit = torch.gather(bit_array, -1, pos) != 0
+        hit = torch.gather(bit_array, -1, _gather_index(pos, width)) != 0
         pass_mask &= hit | ~_active(j, floor_k, activated)
     return pass_mask
 
@@ -185,7 +217,17 @@ def encode_core(bits, h1, h2, act, l, t_hi, t_lo, *, floor_k: int,
 def decode_core(bit_array, witness, h1, h2, act, l, t_hi, t_lo, *,
                 floor_k: int):
     """Inverse of :func:`encode_core`: passing indices read the next
-    witness bit, failing indices are exact zeros.  Returns uint8 (n,)."""
+    witness bit, failing indices are exact zeros.  Returns uint8 (n,).
+
+    ``floor_k`` comes from the record's k.  Above MAX_LANES it raises
+    ValueError: the encoder never writes such a k (floor_k <= 12), and
+    the JAX package unrolls floor_k + 1 lanes when it compiles, so a
+    damaged k of 2e6 never finishes there (ROADMAP Queue 3).  Below 0 it
+    probes lane 0 under the activation test, as the JAX package does."""
+    if floor_k > MAX_LANES:
+        raise ValueError(f"floor(k) = {floor_k} above {MAX_LANES} lanes: "
+                         f"not a record this codec writes")
+    floor_k = max(floor_k, 0)
     a, b, l, activated = _prelude(h1, h2, act, l, t_hi, t_lo)
     positions = lane_positions_masked(a, b, l, floor_k)
     pass_mask = _membership(bit_array, positions, floor_k, activated)

@@ -92,6 +92,13 @@ constexpr int WARPS = THREADS / 32;
 #error "build with -DNBF_GMAX=<frames> (ops/_build.py)"
 #endif
 constexpr int GMAX = NBF_GMAX;
+// Most lanes past lane 0 that K1, K2, K5a and K5b run: the JAX package's
+// cap (k_bucket), which keeps a damaged stream's k from setting the
+// lane loop's length.  Defined once, by ops/_build.py.
+#ifndef NBF_MAX_K_LANES
+#error "build with -DNBF_MAX_K_LANES=<lanes> (ops/_build.py)"
+#endif
+constexpr int MAX_K_LANES = NBF_MAX_K_LANES;
 // CTAs an SM must hold: caps registers at 64 a thread, without spills.
 // K1 is bound by latency, not by its bytes, and runs faster with this
 // occupancy than with the registers ptxas gives it uncapped (2 CTAs an
@@ -763,9 +770,11 @@ __global__ void __launch_bounds__(THREADS, EXPAND_MIN_CTAS) k4_expand(
                          vals_out);
 }
 
-// Grid of K1, K2, K5a and K5b: NB blocks by the frame groups of fpc.
-bool frame_grid(int nf, int nb, int fpc, dim3* grid) {
-    if (fpc < 1 || fpc > GMAX) return false;
+// Grid of K1, K2, K5a and K5b: NB blocks by the frame groups of fpc;
+// false for a group or a lane count the kernels do not take.
+bool frame_grid(int nf, int nb, int fpc, int k_lanes, dim3* grid) {
+    if (fpc < 1 || fpc > GMAX || k_lanes < 0 || k_lanes > MAX_K_LANES)
+        return false;
     *grid = dim3(nb, (nf + fpc - 1) / fpc);
     return true;
 }
@@ -781,7 +790,8 @@ int nbf_k1_encode(const void* bits, const void* h1, const void* h2,
                   void* vseg, void* vcnt, int nf, int nb, int k_lanes,
                   int nw, int vslots, int fpc, void* stream) {
     dim3 grid;
-    if (!frame_grid(nf, nb, fpc, &grid)) return (int)cudaErrorInvalidValue;
+    if (!frame_grid(nf, nb, fpc, k_lanes, &grid))
+        return (int)cudaErrorInvalidValue;
     const FrameArgs fa = {(const int32_t*)m, (const int32_t*)thi,
                           (const int32_t*)tlo, (const int32_t*)fk, nullptr};
     const EncodeOut out = {(int32_t*)words, (uint8_t*)wit, (int32_t*)wcnt,
@@ -800,7 +810,8 @@ int nbf_k2_membership(const void* words, int wstride, const void* h1,
                       void* wcnt, int nf, int nb, int k_lanes, int nw,
                       int fpc, void* stream) {
     dim3 grid;
-    if (!frame_grid(nf, nb, fpc, &grid)) return (int)cudaErrorInvalidValue;
+    if (!frame_grid(nf, nb, fpc, k_lanes, &grid))
+        return (int)cudaErrorInvalidValue;
     const FrameArgs fa = {(const int32_t*)m, (const int32_t*)thi,
                           (const int32_t*)tlo, (const int32_t*)fk,
                           (const int32_t*)flags};
@@ -848,7 +859,8 @@ int nbf_k5a_encode(const void* bits, const void* a, const void* b,
                    void* vseg, void* vcnt, int nf, int nb, int k_lanes,
                    int nw, int vslots, int fpc, void* stream) {
     dim3 grid;
-    if (!frame_grid(nf, nb, fpc, &grid)) return (int)cudaErrorInvalidValue;
+    if (!frame_grid(nf, nb, fpc, k_lanes, &grid))
+        return (int)cudaErrorInvalidValue;
     const ModItems items = {(const int32_t*)a, (const int32_t*)b,
                             (const uint8_t*)act};
     const FrameArgs fa = {(const int32_t*)m, nullptr, nullptr,
@@ -867,7 +879,8 @@ int nbf_k5b_membership(const void* words, int wstride, const void* a,
                        void* wcnt, int nf, int nb, int k_lanes, int nw,
                        int fpc, void* stream) {
     dim3 grid;
-    if (!frame_grid(nf, nb, fpc, &grid)) return (int)cudaErrorInvalidValue;
+    if (!frame_grid(nf, nb, fpc, k_lanes, &grid))
+        return (int)cudaErrorInvalidValue;
     const ModItems items = {(const int32_t*)a, (const int32_t*)b,
                             (const uint8_t*)act};
     const FrameArgs fa = {(const int32_t*)m, nullptr, nullptr,

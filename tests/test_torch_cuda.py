@@ -379,3 +379,60 @@ def test_stress_of_the_double_buffered_kernels(dev):
         dev, rounds=(("quiet", 12), ("busy", 6), ("split", 6)), seed=77,
         nbs=(64, 65, 257, 513), fs=(1, 2, 15, 16, 17))
     assert launched == {name: 20 * 24 for name in chip_smoke.STRESS_KERNELS}
+
+
+def test_32_lanes_on_the_card_equal_twins_and_33_raise(dev):
+    """Frames whose floor(k) passes the cap (a damaged stream's) run 33
+    lanes on the card as in the twins; a lane count past the cap never
+    reaches a kernel."""
+    args, kw = encode_args(dev, seed=4)
+    fk = torch.tensor([40, 33, 20, 3], dtype=torch.int32, device=dev)
+    args = args[:9] + (fk,)
+    kw = dict(kw, k_lanes=bk.lane_count(40))
+    assert kw["k_lanes"] == 32
+    same(bk.blocked_encode_h(*args, **kw), bk.blocked_encode_h_ref(*args,
+                                                                   **kw))
+    words = bk.blocked_encode_h_ref(*args, **kw)[0]
+    flags = torch.zeros(4, dtype=torch.int32, device=dev)
+    mem = (words, *args[1:5], *args[6:10], flags)
+    same(bk.blocked_membership_h(*mem, k_lanes=32, nw=12),
+         bk.blocked_membership_h_ref(*mem, k_lanes=32, nw=12))
+    with pytest.raises(ValueError, match="k_lanes"):
+        bk.blocked_membership_h(*mem, k_lanes=33, nw=12)
+    with pytest.raises(ValueError, match="k_lanes"):
+        bk.blocked_encode_h(*args, **dict(kw, k_lanes=33))
+    torch.cuda.synchronize()
+
+
+def test_damaged_k_decodes_on_the_card_as_on_the_cpu(dev, tmp_path):
+    """chip_smoke phase 15, short: a CIF stream whose first blocked
+    record carries k = 2e6 decodes on the card within 30 s, through K2
+    with 32 lanes, to the CPU decode's frames."""
+    import struct
+    import time
+
+    from new_bloom_filter_repo_tpu_torch.models import frame_codec as fc
+    from new_bloom_filter_repo_tpu_torch.utils import container
+
+    frames = generate_frames(16, 352, 288, seed=0, **SUITE["static_gentle"])
+    ok = str(tmp_path / "ok.bfvc")
+    ImprovedVideoCompressor(device=dev).compress_video(frames, ok)
+    magic, payloads = container.read_bfvc(ok)
+    i = next(j for j, p in enumerate(payloads)
+             if fc.record_type(p) == fc.BLOCKED_Z)
+    rec = bytearray(payloads[i])
+    rec[9:13] = struct.pack("<f", 2e6)
+    payloads[i] = bytes(rec)
+    bad = str(tmp_path / "k2e6.bfvc")
+    container.write_bfvc(bad, payloads, magic)
+    bk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ImprovedVideoCompressor(device=dev).decompress_video(bad)
+    torch.cuda.synchronize()
+    assert time.perf_counter() - t0 < 30
+    assert bk.launches()["blocked_membership_h"] > 0
+    want = ImprovedVideoCompressor(device="cpu").decompress_video(bad)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
