@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --mesh-processes-only
+    python3 chip_smoke.py --tools-only
 
 Drives the port's main path, ``ImprovedVideoCompressor(device="cuda")``
 (blocked profile, exact, motion on), through ``compress_video`` and
@@ -32,7 +33,12 @@ its plain PyTorch twin on the card.  Phases:
    show) and cold (each launch after a 128 MiB write that evicts the
    L2, the launch alone timed), K1-K4 also with a part of their work
    taken away (the "parts" line), and the bytes each kernel must move
-   give its bound at the H100's 3.35 TB/s;
+   give its bound at the H100's 3.35 TB/s; then K1, K2 and K3 on the
+   batches of ``tools/bench.py`` as its codec program gives them (the
+   1080p clip's 120 inter frames, F = 120 and NB = 2032, and the 4K
+   clip's 24, F = 24 and NB = 8104), tolerance 0, each timed warm and
+   cold with its bound, and K3's decoded batch equal to phase A's packed
+   pixels;
 3. the bench clip (1920x1080x3, 31 frames), round trip bit-exact;
 4. the synthetic ``pan`` clip (seed 0, 31 frames, 1080p), round trip
    bit-exact, with type-6 motion records; the launches of each kernel
@@ -51,7 +57,7 @@ its plain PyTorch twin on the card.  Phases:
    file and decoded bit-exactly through the mesh; the same over
    distinct cards where the machine has two or more; one 3840x2160x3
    chunk of 5 frames on a (1, 2) mesh, byte-identical to one device;
-8. ``profile="planar"``: an I420 clip of 16 frames (Y 1920x1080, U and V
+8. ``profile="planar"``: an I420 clip of 8 frames (Y 1920x1080, U and V
    960x540, from the ``pan`` class with 2x2-subsampled chroma), round
    trip plane-exact;
 9. the byte view: three 1920x1080 clips of 16 frames (x3 uint16 with
@@ -84,7 +90,7 @@ its plain PyTorch twin on the card.  Phases:
     fails the run with the mix's seed and shape.  This raises the odds
     of seeing a rare race; it does not prove there is none;
 13. files in and out, on the card, through the port's command line with
-    no ``--device``: (a) the phase-3 clip (31 frames) and 16 frames of
+    no ``--device``: (a) the phase-3 clip (31 frames) and 8 frames of
     the phase-4 clip written as 4:2:0 Y4M files, ``compress`` then
     ``decompress`` to a Y4M file byte-identical to the input, with each
     direction's fps and the time its file reads and writes took; (b) 8
@@ -125,33 +131,52 @@ its plain PyTorch twin on the card.  Phases:
     field and seed.  CIF (352x288, 16 frames) blocked static and pan,
     bfv2, planar I420 and uint16 streams, each with 8 seeded random
     flips (the JAX package's recipe) and edits of the first inter
-    record's k (40.5, 2e6), m, bitmap_bits, witness_bits and type-6
+    record's k (40.5, 2e6, 0), m, bitmap_bits, witness_bits and type-6
     shift (+-32767): every outcome and frame hash must equal the port's
     CPU decode of the same bytes in the parent.  The 1080p files of
-    phases 3-4 with k = 40.5, k = 2e6 and 4 flips each: each must end,
+    phases 3-4 with k = 40.5, 2e6 and 0 and 4 flips each: each must end,
     K2 never past 32 lanes; the k trials also against a CPU decode where
     the time allows.  Then the child decodes the clean 1080p static file
     bit-exactly after a synchronize, and K2, K3 and K4 must each have
-    run on damaged input.
+    run on damaged input;
+16. the repository's tools on the card (``new_bloom_filter_repo_tpu_
+    torch/tools``), with no ``--device``: (a) ``tools.bench.main()``
+    prints its JSON line: the codec program (K1 -> K2 -> K3 -> on-device
+    check) over the resident 1080p batch of 120 frames and the 4K batch
+    of 24, the production schedule at both sizes, ``e2e_fps`` on 16
+    frames and the host stages; every ``lossless`` and
+    ``production_measured`` must be true and ``value_4k`` set; then the
+    card work that one ``encode_chunk_begin`` finish() queues, from a
+    profiler trace of it; (b) ``tools.benchmark_stages.main(["--frames",
+    "120", "--host", "--prefetch-compare"])`` returns 0 and prints its
+    stage lines; (c) ``tools.benchmark_compression.main`` with
+    ``--synthetic`` on the 8-class CIF suite (60 frames a clip), codecs
+    bloom, bloom-planar and keyframe, every clip lossless, with its
+    table; static_gentle, pan and noise_storm at 16 frames on the card
+    and on the CPU, every ratio equal; K4's launches by clip.
 
 Phases 8-11 time each round trip once as it is (the path's fps) and
 then once more under a stage timer, which synchronises the card around
 its device stages, for the breakdown of where the time goes.
 
-Phases 3, 4, 6, 7, 8, 9, 13 (a)-(c) and 14 are the paths of the kernels:
+Phases 3, 4, 6, 7, 8, 9, 13 (a)-(c), 14 and 16 are the paths of the kernels:
 every kernel's launch count is set to 0 just before each and read just
 after, and a kernel its path must launch that it did not fails the run
 (K1-K3 on phase 3; K1, K2 and K4 on phase 4; K5a, K5b and K4 on phase
 6; K1-K4 on phase 7; K1, K2 and K3 or K4 on phases 8 and 13 (a); K1-K3
 on phases 9 and 13 (c); K1 and K2 on phase 13 (b); in each child of
-phase 14, K1-K3 on the static clip and K1, K2 and K4 on the pan clip).
+phase 14, K1-K3 on the static clip and K1, K2 and K4 on the pan clip;
+K1-K3 on phase 16 (a) and (b), whose launches the ``kernels`` line also
+gives by part, with (c)'s).
 Every phase that fails raises; nothing falls back to the CPU.
 The second-to-last lines are the
 per-kernel JSON (launches summed over the path runs) and the card's
 name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.  Beside the contract's keys, each kernel's entry carries the
-``bytes`` behind ``bound_ms``, ``cold_ms`` and its ptxas
-registers and spill bytes.  Exits non-zero without a CUDA card.
+``bytes`` behind ``bound_ms``, ``cold_ms``, its ptxas registers and
+spill bytes, K1-K3's records at the bench batches
+(``at_bench_batches``) and the launches of phase 16 by part
+(``launches_in_tools``).  Exits non-zero without a CUDA card.
 
 ``--kernels-only`` stops after phase 2 and prints no JSON: a copy of
 this script put at the root of another checkout (an older commit)
@@ -160,7 +185,7 @@ times that checkout's kernels the same way, in the same call.
 the call to make on a machine with several cards, where phase 14 takes
 NCCL between two cards.  ``--damaged-only`` runs phases 1 and 15 on the
 CIF streams alone (its clean stream is the CIF static one) and prints
-no JSON.
+no JSON.  ``--tools-only`` runs phases 1 and 16 and prints no JSON.
 """
 
 from __future__ import annotations
@@ -197,9 +222,14 @@ CHUNK = 15
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 FLUSH_BYTES = 128 << 20       # > 2x the 50 MB L2
 SPIN_CYCLES = 50_000_000      # ~25 ms of card time to queue launches behind
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
+    """Print a line; a phase's first line also says how long the script
+    has run."""
+    if msg.startswith("phase"):
+        msg += f" [{time.perf_counter() - T_START:.1f} s in]"
     print(msg, flush=True)
 
 
@@ -632,6 +662,99 @@ def phase_kernels(dev, frames, path_chunks=(), reps: int = 20,
                     f"{out[name]['bound_ms']:.4f} ms at "
                     f"{HBM_BYTES_PER_S / 1e12} TB/s, kernel at "
                     f"{out[name]['bound_ms'] / out[name]['ms']:.3f} of it")
+    return out
+
+
+def bench_batch_args(frames, dev):
+    """The inputs ``tools/bench.py``'s codec program gives K1-K3 on the
+    stacked batch ``frames`` (a base and F inter frames): phase A on the
+    whole batch, then the host parameter math.  Returns (stacked, K1
+    args, geometry)."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as bp
+    from new_bloom_filter_repo_tpu_torch.tools import bench as tb
+
+    h, w = frames[0].shape[:2]
+    tab = bp.blocked_tables(h * w, dev)
+    stacked = torch.from_numpy(np.stack(frames)).to(dev)
+    masks, counts, vals = bp._phase_a(stacked, npad=tab["npad"],
+                                      nb=tab["nb"])
+    m, thi, tlo, fk, geom = tb.codec_params(counts.cpu().numpy(), h * w,
+                                            tab["nb"])
+    return stacked, (masks, tab["h1"], tab["h2"], tab["act_hi"],
+                     tab["act_lo"], vals,
+                     *bp.frame_scalars(dev, m, thi, tlo, fk)), geom
+
+
+def phase_bench_shapes(dev, batches, reps: int = 10):
+    """K1, K2 and K3 against their twins on the bench batches (label,
+    frames) at the shapes ``tools/bench.py``'s codec program gives them
+    (no flagged frame, no raw mask, K3 chained from the base frame),
+    tolerance 0; each kernel timed warm and cold, its twin once, its
+    bound from the bytes it must move.  The decoded batch must also
+    equal phase A's packed pixels, as the program checks.  Returns
+    {label: {wrapper name: {max_abs_err, ms, cold_ms, plain_ms, bytes,
+    bound_ms}}}."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as bp
+    from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+
+    out = {}
+    for label, frames in batches:
+        stacked, enc, geom = bench_batch_args(frames, dev)
+        masks, h1, h2, ahi, alo, vals, m, thi, tlo, fk = enc
+        f, nb, _ = masks.shape
+        k_lanes, vh, nw = geom["k_lanes"], geom["vh"], geom["nw"]
+        log(f"  mix {label}: F={f} NB={nb} k_lanes={k_lanes} nw={nw} "
+            f"vh={vh}")
+        want_enc = bk.blocked_encode_h_ref(*enc, **geom)
+        words, wit, _, vseg, _ = want_enc
+        flags = torch.zeros(f, dtype=torch.int32, device=dev)
+        raw = torch.zeros((f, nb, bk.IPB), dtype=torch.uint8, device=dev)
+        mem = (words, h1, h2, ahi, alo, m, thi, tlo, fk, flags)
+        passes, _ = bk.blocked_membership_h_ref(*mem, k_lanes=k_lanes, nw=nw)
+        base = bp._pack_base(stacked[0], npad=nb * bk.IPB, nb=nb)
+        exp = (passes, wit, raw, flags, vseg, base)
+        cases = [
+            ("blocked_encode_h", lambda: bk.blocked_encode_h(*enc, **geom),
+             lambda: bk.blocked_encode_h_ref(*enc, **geom)),
+            ("blocked_membership_h",
+             lambda: bk.blocked_membership_h(*mem, k_lanes=k_lanes, nw=nw),
+             lambda: bk.blocked_membership_h_ref(*mem, k_lanes=k_lanes,
+                                                 nw=nw)),
+            ("blocked_expand_chain",
+             lambda: bk.blocked_expand_chain(*exp, vh=vh),
+             lambda: bk.blocked_expand_chain_ref(*exp, vh=vh))]
+        # K4's mask on this batch is phase A's change mask (the decode is
+        # exact), which is all kernel_bytes reads of K4's outputs
+        nbytes = kernel_bytes(enc, geom, flags,
+                              {"blocked_encode_h": want_enc,
+                               "blocked_expand": (masks,)})
+        recs = out[label] = {}
+        for name, kern, twin in cases:
+            got = kern()
+            want = twin()
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if name == "blocked_expand_chain" and not torch.equal(got, vals):
+                raise AssertionError(f"{label}: K3's decoded batch differs "
+                                     f"from phase A's packed pixels")
+            del got, want
+            rec = recs[name] = {"max_abs_err": err, "bytes": nbytes[name]}
+            rec["bound_ms"] = nbytes[name] / HBM_BYTES_PER_S * 1e3
+            rec["plain_ms"] = time_ms(twin, 1)
+            rec["ms"] = time_ms(kern, reps)
+            rec["cold_ms"] = time_cold_ms(kern, reps)
+            log(f"    {KERNELS[name][0]} {name}: max_abs_err={err}; kernel "
+                f"{rec['ms']:.4f} ms, after an L2 flush "
+                f"{rec['cold_ms']:.4f} ms, plain twin {rec['plain_ms']:.4f} "
+                f"ms; {rec['bytes']} bytes, bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_ms'] / rec['ms']:.3f} of it)")
+            if err != 0:
+                raise AssertionError(f"{name} disagrees with its twin on "
+                                     f"{label}: max_abs_err={err}")
+        del stacked, enc, want_enc, words, wit, vseg, mem, passes, exp
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1586,11 +1709,11 @@ def phase_files(dev, bench, pan, f32_frames, tmp, card):
     # (a) Y4M through compress / decompress.  The static clip's records
     # decode on the card (K2, K3).  The pan clip's 4:2:0 chroma moves 1.5
     # px a frame, so its 444 view takes keyframes and host residual
-    # records (type 16), found by host trials at about 0.3 fps: 16 of
+    # records (type 16), found by host trials at about 0.3 fps: 8 of
     # its frames, to keep the phase short.
     bk.reset_launches()
     y4m, bfvc = {}, {}
-    for name, clip in (("static", bench), ("pan", pan[:16])):
+    for name, clip in (("static", bench), ("pan", pan[:8])):
         y4m[name] = os.path.join(tmp, f"{name}.y4m")
         videoio.write_y4m(y4m[name], planes_of(i420_from(clip)), W, H)
         bfvc[name] = cli_file_trip(
@@ -1917,8 +2040,11 @@ def damaged_trials(blob, flips, fields=True):
     magic, payloads = container.parse_bfvc(blob)
     i, off, t = inter_record(payloads)
     nb = npad_of(struct.unpack_from("<I", payloads[i], off + 5)[0]) // 1024
+    # k = 0 opens the JAX decoder's padded blocks at 1080p (nb 2032,
+    # 2048 there): the witness must then cover them too
     edits = [("k = 40.5", off + 9, struct.pack("<f", 40.5)),
-             ("k = 2e6", off + 9, struct.pack("<f", 2e6))]
+             ("k = 2e6", off + 9, struct.pack("<f", 2e6)),
+             ("k = 0", off + 9, struct.pack("<f", 0.0))]
     if fields:
         if t != 0:
             edits.append(("m = 16", off + 13, struct.pack("<I", 16 * nb)))
@@ -2057,7 +2183,8 @@ def phase_damaged(dev, tmp, card, full_size=None):
             if tr["size"] != size:
                 continue
             if size == "1080p" and (
-                    not tr["field"].endswith(("k = 40.5", "k = 2e6"))
+                    not tr["field"].endswith(("k = 40.5", "k = 2e6",
+                                              "k = 0"))
                     or time.perf_counter() - t_phase > CPU_1080P_START_S):
                 continue
             t0 = time.perf_counter()
@@ -2174,6 +2301,166 @@ def phase_damaged(dev, tmp, card, full_size=None):
     log(f"  phase 15 took {time.perf_counter() - t_phase:.2f} s ({card})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the repository's tools on the card
+# ---------------------------------------------------------------------------
+
+SUITE_FRAMES = 60                 # frames a suite clip in (c)
+SUITE_CPU_CLIPS = ("synthetic_static_gentle.y4m", "synthetic_pan.y4m",
+                   "synthetic_noise_storm.y4m")
+SUITE_CPU_FRAMES = 16
+SUITE_CODECS = ("bloom", "bloom-planar", "keyframe")
+
+
+def finish_device_work(dev, frames):
+    """(kernels, copies) that one ``encode_chunk_begin`` finish() of
+    ``frames``' first chunk queues on the card, from a torch.profiler
+    trace of that call alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as bp
+
+    fin = bp.BlockedEncoder(device=dev).encode_chunk_begin(
+        frames[0], frames[1:CHUNK + 1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fin()
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum("memcpy" in n.lower() or "memset" in n.lower()
+                 for n in on_card)
+    return len(on_card) - copies, copies
+
+
+def suite_bench(tbc, path, codec, max_frames, device=None):
+    """One clip through ``tools/benchmark_compression``'s bench of
+    ``codec``."""
+    if codec == "bloom-planar":
+        return tbc.bench_bloom_planar(path, max_frames, threads=4,
+                                      device=device)
+    return tbc.bench_bloom(path, max_frames, codec, threads=4, device=device)
+
+
+def phase_tools(dev, tmp, card, suite_frames=SUITE_FRAMES):
+    """Phase 16: (a) ``tools.bench.main()`` (the 1080p x 120 codec loop,
+    e2e on 16 frames, the host stages, the production schedule, then the
+    4K x 24 codec loop and production schedule), every ``lossless`` and
+    ``production_measured`` true, ``value_4k`` set; the device work one
+    finish() queues.  (b) ``tools.benchmark_stages.main`` at F = 120 with
+    --host and --prefetch-compare.  (c) ``tools.benchmark_compression
+    .main --synthetic`` on the 8-class CIF suite (``suite_frames``
+    frames), codecs bloom, bloom-planar and keyframe, every clip
+    lossless; static_gentle, pan and noise_storm at 16 frames on the
+    card and on the CPU, every ratio equal.  Returns the launches of
+    (a)-(c) by part, and K4's by clip."""
+    from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+    from new_bloom_filter_repo_tpu_torch.tools import bench as tb
+    from new_bloom_filter_repo_tpu_torch.tools import (
+        benchmark_compression as tbc)
+    from new_bloom_filter_repo_tpu_torch.tools import benchmark_stages as tbs
+
+    parts = {}
+    t0 = time.perf_counter()
+    bk.reset_launches()
+    out = tb.main([])
+    log(f"  (a) tools.bench ran in {time.perf_counter() - t0:.2f} s "
+        f"({card}); its JSON line is the line above")
+    parts["a"] = path_launches("(a) tools.bench", [
+        "blocked_encode_h", "blocked_membership_h", "blocked_expand_chain"])
+    if out.get("value_4k") is None:
+        raise AssertionError(f"(a) value_4k is None: {out.get('note_4k')}")
+    bad = [k for k in ("lossless", "production_measured", "lossless_4k",
+                       "production_measured_4k") if out.get(k) is not True]
+    if bad or out.get("host_stage_fps") is None:
+        raise AssertionError(f"(a) tools.bench: {bad} not true or no host "
+                             f"stage figure: {out}")
+    kernels, copies = finish_device_work(dev, tb.make_clip(CHUNK + 1))
+    log(f"  (a) one encode_chunk_begin finish() of the bench clip's first "
+        f"chunk queued {kernels} kernels and {copies} copies on the card")
+
+    t0 = time.perf_counter()
+    bk.reset_launches()
+    log("  (b) tools.benchmark_stages --frames 120 --host "
+        "--prefetch-compare:")
+    rc = tbs.main(["--frames", "120", "--host", "--prefetch-compare"])
+    if rc != 0:
+        raise AssertionError(f"(b) benchmark_stages returned {rc}")
+    log(f"  (b) ran in {time.perf_counter() - t0:.2f} s ({card})")
+    parts["b"] = path_launches("(b) tools.benchmark_stages", [
+        "blocked_encode_h", "blocked_membership_h", "blocked_expand_chain"])
+
+    t0 = time.perf_counter()
+    vdir = os.path.join(tmp, "suite")
+    res_path = os.path.join(tmp, "suite_results.json")
+    k4 = {}
+    originals = {n: getattr(tbc, n) for n in ("bench_bloom",
+                                              "bench_bloom_planar")}
+
+    def counted(name):
+        def run(path, max_frames, *args, **kw):
+            before = bk.launches()["blocked_expand"]
+            r = originals[name](path, max_frames, *args, **kw)
+            codec = "bloom-planar" if name.endswith("planar") else args[0]
+            n = bk.launches()["blocked_expand"] - before
+            if n:
+                key = f"{os.path.basename(path)} {codec} {max_frames}"
+                k4[key] = k4.get(key, 0) + n
+            return r
+        return run
+
+    bk.reset_launches()
+    for n in originals:
+        setattr(tbc, n, counted(n))
+    try:
+        log(f"  (c) tools.benchmark_compression --synthetic "
+            f"--synthetic-frames {suite_frames} --codecs "
+            f"{' '.join(SUITE_CODECS)}:")
+        rc = tbc.main(["--synthetic", "--synthetic-frames",
+                       str(suite_frames), "--video-dir", vdir, "--results",
+                       res_path, "--codecs", *SUITE_CODECS])
+        if rc != 0:
+            raise AssertionError(f"(c) benchmark_compression returned {rc}")
+        t_suite = time.perf_counter() - t0
+        with open(res_path) as fh:
+            results = json.load(fh)
+        log(f"  (c) the suite, {suite_frames} frames a clip, "
+            f"{t_suite:.2f} s ({card}): clip, codec, ratio, encode s, "
+            f"decode s, lossless")
+        for clip, rows in sorted(results.items()):
+            for codec in SUITE_CODECS:
+                r = rows[codec]
+                log(f"    {clip} {codec}: {r['ratio']:.6f} "
+                    f"{r['encode_s']} {r['decode_s']} {r['lossless']}"
+                    + (" budget_exceeded" if r.get("budget_exceeded")
+                       else ""))
+                if not r["lossless"] or r["frames"] != suite_frames:
+                    raise AssertionError(f"(c) {clip} {codec}: {r}")
+        if len(results) != 8:
+            raise AssertionError(f"(c) {len(results)} suite clips, not 8")
+        for clip in SUITE_CPU_CLIPS:
+            path = os.path.join(vdir, clip)
+            for codec in SUITE_CODECS:
+                card_r = suite_bench(tbc, path, codec, SUITE_CPU_FRAMES)
+                cpu_r = suite_bench(tbc, path, codec, SUITE_CPU_FRAMES,
+                                    device="cpu")
+                log(f"    {clip} {codec} {SUITE_CPU_FRAMES} frames: ratio "
+                    f"{card_r['ratio']:.6f} on the card, "
+                    f"{cpu_r['ratio']:.6f} on the CPU; encode "
+                    f"{card_r['encode_s']} / {cpu_r['encode_s']} s")
+                if (card_r["ratio"] != cpu_r["ratio"]
+                        or not card_r["lossless"] or not cpu_r["lossless"]):
+                    raise AssertionError(f"(c) {clip} {codec}: card "
+                                         f"{card_r}, CPU {cpu_r}")
+    finally:
+        for n, fn in originals.items():
+            setattr(tbc, n, fn)
+    parts["c"] = path_launches("(c) tools.benchmark_compression", [])
+    log(f"  (c) K4 launches by clip, codec and frames: {k4 or 'none'}; "
+        f"(c) took {time.perf_counter() - t0:.2f} s")
+    return parts, k4
+
+
 def main() -> int:
     import torch
 
@@ -2218,6 +2505,11 @@ def main() -> int:
                 f"({smi}):")
             phase_damaged(dev, tmp, smi)
         return 0
+    if "--tools-only" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as tmp:
+            log(f"phase 16 the tools on the card ({smi}):")
+            phase_tools(dev, tmp, smi)
+        return 0
     t0 = time.perf_counter()
     bench = make_bench_clip(31)
     pan = synthetic.generate_frames(31, W, H, seed=0,
@@ -2239,6 +2531,15 @@ def main() -> int:
                      [ImprovedVideoCompressor._byte_view(f) for f in clip])
                     for label, clip in byte_clips]
     stats = phase_kernels(dev, bench, path_chunks)
+    from new_bloom_filter_repo_tpu_torch.tools import bench as tools_bench
+    t0 = time.perf_counter()
+    batches = [("bench batch 1080p x 120", tools_bench.make_clip()),
+               ("bench batch 4K x 24", tools_bench.make_clip(
+                   tools_bench.FRAMES_4K, 2160, 3840, seed=1))]
+    log(f"  the bench batches of tools/bench.py generated on the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+    at_bench = phase_bench_shapes(dev, batches)
+    del batches
     if "--kernels-only" in sys.argv[1:]:
         return 0
     with tempfile.TemporaryDirectory() as tmp:
@@ -2252,7 +2553,7 @@ def main() -> int:
         log(f"phase 7 devices= ({smi}):")
         runs.append(phase_devices(dev, bench, pan, tmp, smi))
         log(f"phase 8 planar ({smi}):")
-        runs.append(phase_planar(dev, pan[:16], tmp, smi))
+        runs.append(phase_planar(dev, pan[:8], tmp, smi))
         log(f"phase 9 byte view ({smi}):")
         runs.append(phase_byte_view(dev, byte_clips, tmp, smi))
         log(f"phase 10 bfv2 ({smi}):")
@@ -2270,6 +2571,9 @@ def main() -> int:
         log(f"phase 15 damaged streams through the kernels ({smi}):")
         phase_damaged(dev, tmp, smi, full_size={
             "static": (single["static"], bench), "pan": (single["pan"], pan)})
+        log(f"phase 16 the tools on the card ({smi}):")
+        tool_parts, _ = phase_tools(dev, tmp, smi)
+        runs += list(tool_parts.values())
     launches = {n: sum(r[n] for r in runs) for n in KERNELS}
 
     kernels = []
@@ -2283,7 +2587,11 @@ def main() -> int:
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "bytes": st["bytes"],
             "cold_ms": st.get("cold_ms"), "ptxas_registers": regs,
-            "ptxas_spill_bytes": spills})
+            "ptxas_spill_bytes": spills,
+            "at_bench_batches": {label: recs[n] for label, recs
+                                 in at_bench.items() if n in recs},
+            "launches_in_tools": {part: ln[n]
+                                  for part, ln in tool_parts.items()}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -552,6 +552,31 @@ def _vh_bucket(max_count: int) -> int:
     return min(vh, 32)
 
 
+def nbk_of(nb: int) -> int:
+    """The JAX package's kernel block count: ``nb`` rounded up to a
+    multiple of 64 from nb = 512 on (its Pallas grid's tiles).  The port's
+    kernels run over ``nb`` blocks; its decoder still counts the JAX
+    decoder's padded blocks into the witness and value slicing
+    (:func:`padded_block_wcnt`)."""
+    return ((nb + 63) // 64) * 64 if nb >= 512 else nb
+
+
+def padded_block_wcnt(parsed: dict, nb: int) -> np.ndarray:
+    """(F, nbk_of(nb) - nb) membership counts of the JAX decoder's padded
+    blocks, whose sub-filter words and hash tables are zero: an item
+    there probes bit 0 of a zero word, so it passes iff its frame is not
+    flagged and has no active lane, that is floor(k) < 0, or floor(k) = 0
+    with a zero activation threshold (the zero activation hash is below
+    any other).  Only a damaged k gives such a frame; it then wants 128
+    witness bytes more a padded block, as in the JAX package."""
+    fk = parsed["fk_arr"]
+    no_lane = (fk < 0) | ((fk == 0) & (parsed["thi"] == 0)
+                          & (parsed["tlo"] == 0))
+    open_ = (parsed["flags"] == 0) & no_lane
+    return np.repeat((open_ * bk.IPB).astype(np.int32)[:, None],
+                     nbk_of(nb) - nb, axis=1)
+
+
 def chunk_params(counts: np.ndarray, n: int, nb: int):
     """Host float64 parameter math of one chunk from its per-block
     change counts (F, NB): the record kind of every frame ("empty",
@@ -2303,49 +2328,71 @@ class BlockedDecoder:
         the decode host hot spot (10.2 -> ~0.5 ms/frame at 1080p).
         Depends on the device membership counts ``wcnt``; under the
         pipelined schedule it runs while the NEXT chunk's membership
-        executes.  Returns (wit, block_counts, vseg, vh)."""
+        executes.  Returns (wit, block_counts, vseg, vh).
+
+        ``wcnt`` may carry the JAX decoder's padded blocks after the
+        ``nb`` real ones (:meth:`membership_counts`): a frame whose
+        padded blocks pass items consumes their witness bytes and values
+        too, as there, and they are dropped."""
         f = parsed["f"]
         flags = parsed["flags"]
         raw_mask = parsed["raw_mask"]
         wit_streams = parsed["wit_streams"]
         wit_packed = parsed["wit_packed"]
         value_streams = parsed["value_streams"]
+        # frames whose padded blocks pass items (a damaged k) walk every
+        # row in a scratch array; the others walk the nb real rows
+        rows = [wcnt.shape[1] if wcnt[j, nb:].any() else nb
+                for j in range(f)]
         # batch arrays start uninitialized: pad_rows(out=frame slice)
         # zero-fills and writes each frame in one native pass, and the
         # rare frames without a stream zero their row explicitly.
         wit = self._batch_buf("wit", (f, nb, bk.WIT_BYTES))
         block_counts = np.zeros((f, nb), np.int32)
+        padded_counts = np.zeros((f, wcnt.shape[1] - nb), np.int32)
         for j in range(f):
             if wit_streams[j] is None:
                 wit[j] = 0
                 if flags[j]:
                     block_counts[j] = raw_mask[j].sum(axis=1)
                 continue
-            buf = np.frombuffer(wit_streams[j], dtype=np.uint8)
+            cnt = wcnt[j, :rows[j]]
             if wit_packed[j]:
-                wit[j] = native.bitunpack_rows(wit_streams[j], nb,
-                                               bk.WIT_BYTES, wcnt[j])
+                out = native.bitunpack_rows(wit_streams[j], rows[j],
+                                            bk.WIT_BYTES, cnt)
             else:
-                seg_lens = ((wcnt[j] + 7) // 8).astype(np.uint32)
-                native.pad_rows(buf, nb, bk.WIT_BYTES, seg_lens,
-                                out=wit[j])
-            block_counts[j] = native.witness_popcounts(wit[j], wcnt[j])
+                out = (wit[j] if rows[j] == nb
+                       else np.empty((rows[j], bk.WIT_BYTES), np.uint8))
+                native.pad_rows(np.frombuffer(wit_streams[j], np.uint8),
+                                rows[j], bk.WIT_BYTES,
+                                ((cnt + 7) // 8).astype(np.uint32), out=out)
+            counts = native.witness_popcounts(out, cnt)
+            block_counts[j] = counts[:nb]
+            padded_counts[j, :rows[j] - nb] = counts[nb:]
+            if wit_packed[j] or rows[j] != nb:
+                wit[j] = out[:nb]
 
-        vh = _vh_bucket(int(block_counts.max()) if block_counts.size else 1)
+        vh = _vh_bucket(int(max(block_counts.max(initial=1),
+                                padded_counts.max(initial=1))))
         # value segments travel as pixel-major BYTES (c bytes per slot
         # instead of a 4-byte int) and are packed to 24-bit ints on
         # device after the upload (_unpack_vseg_bytes).
-        vseg = self._batch_buf("vseg", (f, nb, vh * 32 * channels))
+        stride = vh * 32 * channels
+        vseg = self._batch_buf("vseg", (f, nb, stride))
         for j in range(f):
             vs = value_streams[j]
             if vs is None or vs.size == 0:
                 vseg[j] = 0
                 continue
-            native.pad_rows(
-                np.ascontiguousarray(vs, np.uint8), nb,
-                vh * 32 * channels,
-                (block_counts[j] * channels).astype(np.uint32),
-                out=vseg[j])
+            counts = np.concatenate([block_counts[j],
+                                     padded_counts[j, :rows[j] - nb]])
+            out = (vseg[j] if rows[j] == nb
+                   else np.empty((rows[j], stride), np.uint8))
+            native.pad_rows(np.ascontiguousarray(vs, np.uint8), rows[j],
+                            stride, (counts * channels).astype(np.uint32),
+                            out=out)
+            if rows[j] != nb:
+                vseg[j] = out[:nb]
         return wit, block_counts, vseg, vh
 
     def membership_counts(self, parsed: dict, shape):
@@ -2371,7 +2418,10 @@ class BlockedDecoder:
             passes_d, wcnt_d = bk.blocked_membership_h(
                 words, tab["h1"], tab["h2"], tab["act_hi"], tab["act_lo"],
                 *scalars, flags, k_lanes=k_lanes, nw=nw)
-        return passes_d, wcnt_d.cpu().numpy()
+        # the JAX decoder's padded blocks, after the real ones
+        return passes_d, np.concatenate(
+            [wcnt_d.cpu().numpy(),
+             padded_block_wcnt(parsed, parsed["words"].shape[1])], axis=1)
 
     def decode_run_begin(self, base, payloads: List[bytes],
                          stage_times: Optional[dict] = None):

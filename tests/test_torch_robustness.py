@@ -20,6 +20,7 @@ JAX package's slow tests, with the same seeds and trial counts.
 import contextlib
 import signal
 import struct
+import zlib
 
 import numpy as np
 import pytest
@@ -291,6 +292,85 @@ def test_32_lanes_match_pallas():
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     assert int(tc.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# The JAX decoder's padded blocks: from nb = 512 on it runs K2 and the
+# witness and value slicing over nbk_of(nb) blocks, nb rounded up to a
+# multiple of 64, whose sub-filter words and hash tables are zero.  A
+# frame with no active lane (k = 0 exactly, or floor(k) < 0) passes every
+# item of those blocks too, so the JAX package wants 128 witness bytes
+# more a padded block.
+# ---------------------------------------------------------------------------
+
+PAD_H, PAD_W = 520, 1024              # nb = 520, nbk = 576
+
+
+@pytest.fixture(scope="module")
+def padded_stream(tmp_path_factory):
+    """A port-written stream at PAD_H x PAD_W: a keyframe, then two type-7
+    records."""
+    frames = generate_frames(3, PAD_W, PAD_H, seed=0,
+                             **SUITE["static_gentle"])
+    path = str(tmp_path_factory.mktemp("padded") / "ok.bfvc")
+    ImprovedVideoCompressor(verbose=False, device="cpu").compress_video(
+        frames, path)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("rows", ["nb", "nbk"])
+def test_k_zero_at_a_padded_geometry_decodes_as_jax(tmp_path, padded_stream,
+                                                     rows):
+    """The first inter record's k set to 0 and its witness section
+    rebuilt raw to exactly ``rows`` x 128 bytes, seeded bits that need no
+    more values than the record holds: with nb rows the JAX package finds
+    the witness short (it also reads the padded blocks) and raises, with
+    nbk rows both return the same frames."""
+    from new_bloom_filter_repo_tpu.models.blocked_pipeline import nbk_of
+
+    nb = npad_of(PAD_H * PAD_W) // tbk.IPB
+    nbk = nbk_of(nb)
+    assert (nb, nbk) == (520, 576)
+    magic, payloads = container.parse_bfvc(padded_stream)
+    idx = first_record(padded_stream, fc.BLOCKED_Z)
+    rec = fc.parse_blocked_z(payloads[idx], 1)
+    n_rows = nb if rows == "nb" else nbk
+    rng = np.random.default_rng(11)
+    bits = np.zeros(nbk * tbk.IPB, np.uint8)
+    bits[rng.choice(bits.size, rec["values_count"] // 3,
+                    replace=False)] = 1
+    wit = np.packbits(bits)[: n_rows * tbk.WIT_BYTES].tobytes()
+    payloads[idx] = fc.build_blocked_z_record(
+        rec["p"], rec["n"], 0.0, rec["bitmap_bits"], n_rows * tbk.IPB,
+        (0, rec["bitmap_bytes"].tobytes(), 0), (0, wit, 0),
+        zlib.compress(rec["values"].tobytes()), rec["values_count"])
+    jax_out = decode_both(tmp_path, container.serialize_bfvc(payloads, magic),
+                          f"k = 0, witness of {rows} rows")
+    assert jax_out[0] == ("raise" if rows == "nb" else "frames")
+
+
+def test_padded_block_counts_are_the_jax_decoders(padded_stream):
+    """The port's witness counts of a parsed chunk, padded blocks
+    included, equal the JAX decoder's, with k edited to 0, -5 and 0.5 (a
+    lane is active there, so the padded blocks stay closed)."""
+    from new_bloom_filter_repo_tpu.models.blocked_pipeline import (
+        BlockedDecoder as JaxDecoder)
+    from new_bloom_filter_repo_tpu_torch.models.blocked_pipeline import (
+        BlockedDecoder)
+
+    _, payloads = container.parse_bfvc(padded_stream)
+    shape = (PAD_H, PAD_W, 3)
+    for k in (0.0, -5.0, 0.5):
+        run = [payloads[1][:9] + F32(k) + payloads[1][13:], payloads[2]]
+        jdec = JaxDecoder()
+        _, want = jdec.membership_counts(jdec.parse_records(shape, run),
+                                         shape)
+        tdec = BlockedDecoder(device="cpu")
+        _, got = tdec.membership_counts(tdec.parse_records(shape, run),
+                                        shape)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        assert int(got[0, 520:].sum()) == (56 * 1024 if k <= 0 else 0)
 
 
 # ---------------------------------------------------------------------------
