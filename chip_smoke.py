@@ -5,19 +5,28 @@
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --mesh-processes-only
     python3 chip_smoke.py --tools-only
+    python3 chip_smoke.py --profile-phase-a
 
 Drives the port's main path, ``ImprovedVideoCompressor(device="cuda")``
 (blocked profile, exact, motion on), through ``compress_video`` and
 ``decompress_video`` at 1080p, its multi-device paths (the mesh dry
 runs and ``devices=``), its other profiles and modes and its file paths
 (the command line, Y4M / raw YUV / EXR in and out), after building
-the hand-written Hopper kernels K1-K5b from
+the hand-written Hopper kernels K1-K7 from
 ``new_bloom_filter_repo_tpu_torch/ops/csrc`` and holding each against
 its plain PyTorch twin on the card.  Phases:
 
 1. device: the card, its power limit, the kernel build;
-2. kernel vs twin at the 1080p chunk shapes (F = 15, NB = 2032), on the
-   inputs of a real chunk and on a mix with edge-case filter widths,
+2. kernel vs twin.  First phase A, whose outputs are K1's inputs
+   below: K7 (the motion search's counts) and K6 (masks, counts and
+   packed pixels) against their twins, tolerance 0, on the first chunk
+   (F = 15) of the 1080p bench clip and of the pan clip with motion on
+   (K7 at the path's stride, K6 on the shifts the search picks and with
+   no shifts), on the same chunks of the other paths below (the planar
+   U plane, each byte-view clip) and on ``tools/bench.py``'s batches
+   without motion (1080p x 120, 4K x 24), each call timed warm and cold
+   with its twin, bytes and bound.  Then K1-K5b at the 1080p chunk
+   shapes (F = 15, NB = 2032), on the inputs of a real chunk and on a mix with edge-case filter widths,
    pass-through flags and raw masks, at the shapes the other paths
    give the kernels: the first chunk of the phase-8 U plane (960x540,
    NB = 512) and of each phase-9 clip's byte view (NB = 12152, 24304
@@ -78,10 +87,12 @@ its plain PyTorch twin on the card.  Phases:
     bloom_core and median torch ops timed at 1080p;
 12. stress of the kernels whose shared-memory buffers are rewritten
     within a launch (K1 and K5a double-buffer the sub-filter, K3 and K4
-    double-buffer by frame parity): 60 seeded mixes a kernel (NB 64 to
-    513, F of 1, 2, 15, 16 and 17, m across 1 and 16..384, change and
-    pass densities from none to every item, alternating flagged frames,
-    vh of 1, 4 and 16 with more changes than slots), each launched 320
+    double-buffer by frame parity, K7 restages previous-frame rows for
+    every sample row): 60 seeded mixes a kernel (NB 64 to 513, F of 1,
+    2, 15, 16 and 17, m across 1 and 16..384, change and pass densities
+    from none to every item, alternating flagged frames, vh of 1, 4 and
+    16 with more changes than slots; K7 on frames of 1-3 bytes a pixel
+    from 24 x 37 to 276 x 669 at stride 4 and 8), each launched 320
     times: a round launches all 60 back to back behind a spin of the
     card, in a new order, and then holds every launch to its twin's
     outputs with tolerance 0; 200 rounds on one stream, 80 beside a
@@ -167,7 +178,9 @@ after, and a kernel its path must launch that it did not fails the run
 on phases 9 and 13 (c); K1 and K2 on phase 13 (b); in each child of
 phase 14, K1-K3 on the static clip and K1, K2 and K4 on the pan clip;
 K1-K3 on phase 16 (a) and (b), whose launches the ``kernels`` line also
-gives by part, with (c)'s).
+gives by part, with (c)'s; and K6 and K7 on every one of these but
+phase 6, whose dry run makes its inputs without phase A: each encodes
+frames of at least 28 x 28 pixels with motion on).
 Every phase that fails raises; nothing falls back to the CPU.
 The second-to-last lines are the
 per-kernel JSON (launches summed over the path runs) and the card's
@@ -181,6 +194,12 @@ spill bytes, K1-K3's records at the bench batches
 ``--kernels-only`` stops after phase 2 and prints no JSON: a copy of
 this script put at the root of another checkout (an older commit)
 times that checkout's kernels the same way, in the same call.
+``--profile-phase-a`` runs phase 1, then phase A under ``utils/
+profiling.trace`` (``_phase_a`` on the 1080p x 120 bench batch,
+``_phase_a_auto`` on its first 15-frame chunk: the top five device
+ops), the codec program's fps on that batch three times and
+``tools.benchmark_stages --frames 120``, and prints no JSON; it too runs
+from the root of an older checkout (the port since its tools).
 ``--mesh-processes-only`` runs phases 1, 3-4 and 14 and prints no JSON:
 the call to make on a machine with several cards, where phase 14 takes
 NCCL between two cards.  ``--damaged-only`` runs phases 1 and 15 on the
@@ -206,17 +225,31 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port_pan.bfvc")
 CSRC = "new_bloom_filter_repo_tpu_torch/ops/csrc/blocked.cu"
+CSRC_PHASE_A = "new_bloom_filter_repo_tpu_torch/ops/csrc/phase_a.cu"
 TPU_KERNELS = "new_bloom_filter_repo_tpu/ops/pallas/blocked.py"
-# kernel wrapper name -> (short name, pallas_call line it replaces, the
-# kernel's entry function in CSRC)
+JAX_PIPELINE = "new_bloom_filter_repo_tpu/models/blocked_pipeline.py"
+# kernel wrapper name -> (short name, what it replaces: the pallas_call
+# of a TPU kernel, or for K6 and K7 the JAX function that XLA compiled;
+# the kernel's entry function; its source)
 KERNELS = {
-    "blocked_encode_h": ("K1", 660, "k1_encode"),
-    "blocked_membership_h": ("K2", 703, "k2_membership"),
-    "blocked_expand_chain": ("K3", 832, "k3_expand_chain"),
-    "blocked_expand": ("K4", 774, "k4_expand"),
-    "blocked_encode": ("K5a", 595, "k5a_encode"),
-    "blocked_membership": ("K5b", 740, "k5b_membership"),
+    "blocked_encode_h": ("K1", f"{TPU_KERNELS}:660", "k1_encode", CSRC),
+    "blocked_membership_h": ("K2", f"{TPU_KERNELS}:703", "k2_membership",
+                             CSRC),
+    "blocked_expand_chain": ("K3", f"{TPU_KERNELS}:832", "k3_expand_chain",
+                             CSRC),
+    "blocked_expand": ("K4", f"{TPU_KERNELS}:774", "k4_expand", CSRC),
+    "blocked_encode": ("K5a", f"{TPU_KERNELS}:595", "k5a_encode", CSRC),
+    "blocked_membership": ("K5b", f"{TPU_KERNELS}:740", "k5b_membership",
+                           CSRC),
+    # _phase_a_pair; _phase_a_motion_pair (:681) too
+    "phase_a_diff": ("K6", f"{JAX_PIPELINE}:359", "k6_phase_a_diff",
+                     CSRC_PHASE_A),
+    "motion_counts": ("K7", f"{JAX_PIPELINE}:406", "k7_motion_counts",
+                      CSRC_PHASE_A),
 }
+# The phase-A kernels; K1-K5b are BLOCKED_KERNELS
+PHASE_A_KERNELS = ("phase_a_diff", "motion_counts")
+BLOCKED_KERNELS = tuple(k for k in KERNELS if k not in PHASE_A_KERNELS)
 H, W = 1080, 1920
 CHUNK = 15
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
@@ -665,6 +698,221 @@ def phase_kernels(dev, frames, path_chunks=(), reps: int = 20,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 2, first: phase A's kernels K6 and K7 against their twins
+# ---------------------------------------------------------------------------
+
+def phase_a_bytes(stacked, nb, shifts):
+    """Bytes K6 must move on a stacked (F+1, h, w[, c]) chunk: each frame
+    read once (frame j is pair j's previous and pair j-1's current), the
+    shifts, and the masks, counts and values written once."""
+    f = stacked.shape[0] - 1
+    npad = nb * 1024
+    return (stacked.numel() + (0 if shifts is None else 8 * f)
+            + f * npad + 4 * f * nb + 4 * f * npad)
+
+
+def motion_bytes(stacked, stride):
+    """Bytes K7 must move on a stacked chunk: the F previous frames read
+    once (at a stride of at most 2R + 1 every pixel lies within R of a
+    sample row and column), the current frames' samples once, the (F,
+    225) counts written once."""
+    from new_bloom_filter_repo_tpu_torch.ops import phase_a as pa
+
+    f, h, w = stacked.shape[0] - 1, stacked.shape[1], stacked.shape[2]
+    c = stacked[0].numel() // (h * w)
+    sh, sw = -(-h // stride), -(-w // stride)
+    return f * h * w * c + f * sh * sw * c + 4 * f * pa.CANDIDATES
+
+
+def phase_a_cases(stacked, motion: bool):
+    """[(name, label, kernel call, twin call, bytes)] of K6 and K7 on one
+    stacked chunk: with ``motion``, K7 at the path's stride, then K6 on
+    the shifts the search picks from the twin's counts (the main path's
+    call) and K6 with no shifts; without, K6 with no shifts (the codec
+    program's call)."""
+    from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as bp
+    from new_bloom_filter_repo_tpu_torch.ops import phase_a as pa
+
+    h, w = stacked.shape[1], stacked.shape[2]
+    npad = bp.npad_of(h * w)
+    nb = npad // 1024
+    prev, curr = stacked[:-1], stacked[1:]
+    cases = []
+    if motion:
+        stride = bp.motion_stride(h, w)
+        counts = pa.motion_counts_ref(prev, curr, stride)
+        shifts = torch_from(bp.choose_shifts(counts.cpu().numpy()),
+                            stacked.device)
+        cases.append(("motion_counts", f"stride {stride}",
+                      lambda: pa.motion_counts(prev, curr, stride),
+                      lambda: pa.motion_counts_ref(prev, curr, stride),
+                      motion_bytes(stacked, stride)))
+        nz = int((shifts != 0).any(dim=1).sum())
+        cases.append(("phase_a_diff", f"shifts from the search ({nz} of "
+                      f"{shifts.shape[0]} frames shifted)",
+                      lambda: pa.phase_a_diff(prev, curr, shifts, npad, nb),
+                      lambda: pa.phase_a_diff_ref(prev, curr, shifts, npad,
+                                                  nb),
+                      phase_a_bytes(stacked, nb, shifts)))
+    cases.append(("phase_a_diff", "no shifts",
+                  lambda: pa.phase_a_diff(prev, curr, None, npad, nb),
+                  lambda: pa.phase_a_diff_ref(prev, curr, None, npad, nb),
+                  phase_a_bytes(stacked, nb, None)))
+    return cases
+
+
+def torch_from(arr, dev):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+
+def phase_phase_a(dev, mixes, reps: int = 10, twin_reps: int = 2):
+    """K6 and K7 against their twins on each (label, frames, motion,
+    main) mix: the frames stacked on the card as one chunk (base and
+    inter frames), tolerance 0, before their outputs feed K1; each
+    kernel call timed warm and cold, its twin warm, its bytes and bound.
+    Returns {wrapper name: record}: the worst max_abs_err over every
+    mix, the times and bound of the ``main`` mix's first call of each
+    kernel, and every call's record under ``at_mixes``."""
+    import torch
+
+    out = {name: {"max_abs_err": 0, "at_mixes": {}}
+           for name in PHASE_A_KERNELS}
+    for label, frames, motion, main in mixes:
+        stacked = torch_from(np.stack(frames), dev)
+        f, h, w = stacked.shape[0] - 1, stacked.shape[1], stacked.shape[2]
+        log(f"  mix {label}: F={f} {h}x{w} {tuple(stacked.shape[3:])} "
+            f"motion={'on' if motion else 'off'}")
+        for name, what, kern, twin, nbytes in phase_a_cases(stacked, motion):
+            got, want = kern(), twin()
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            del got, want
+            rec = {"max_abs_err": err, "bytes": nbytes,
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "ms": time_ms(kern, reps),
+                   "cold_ms": time_cold_ms(kern, reps),
+                   "plain_ms": time_ms(twin, twin_reps)}
+            out[name]["at_mixes"][f"{label}, {what}"] = rec
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            if main and "ms" not in out[name]:
+                out[name].update({k: v for k, v in rec.items()
+                                  if k != "max_abs_err"})
+            log(f"    {KERNELS[name][0]} {name} ({what}): max_abs_err="
+                f"{err}; kernel {rec['ms']:.4f} ms, after an L2 flush "
+                f"{rec['cold_ms']:.4f} ms, plain twin {rec['plain_ms']:.4f}"
+                f" ms; {nbytes} bytes, bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_ms'] / rec['ms']:.3f} of it)")
+            if err != 0:
+                raise AssertionError(f"{name} disagrees with its twin on "
+                                     f"{label} ({what}): max_abs_err={err}")
+        del stacked
+        torch.cuda.empty_cache()
+    return out
+
+
+def trace_top_ops(trace_dir, reps: int, top: int = 5):
+    """(device ms a rep, [(name, ms a rep, calls a rep)] of the ``top``
+    device ops by time) from the one Chrome trace in ``trace_dir``:
+    kernels, copies and memsets."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"expected one trace file, found {files}")
+    with open(os.path.join(trace_dir, files[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    by_name = {}
+    for ev in events:
+        if ev.get("ph") == "X" and str(ev.get("cat", "")).lower() in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            us, calls = by_name.get(ev["name"], (0.0, 0))
+            by_name[ev["name"]] = (us + float(ev.get("dur", 0)), calls + 1)
+    if not by_name:
+        raise AssertionError("the trace holds no device op")
+    total = sum(us for us, _ in by_name.values()) / 1e3 / reps
+    ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return total, [(name, us / 1e3 / reps, calls / reps)
+                   for name, (us, calls) in ops]
+
+
+def phase_a_profile(dev, card, reps: int = 5):
+    """``--profile-phase-a``: phase A as the tools and the main path call
+    it, under ``utils/profiling.trace`` (torch.profiler): ``_phase_a`` on
+    tools/bench.py's 1080p batch (F = 120, C = 3) and ``_phase_a_auto``
+    on its first 15-frame chunk, ``reps`` calls each after a warm-up;
+    prints the device ms a call and the top five device ops.  Then the
+    torch-op programs next in line for a kernel at that chunk (the
+    packed masks with and without motion, the per-tile motion summary,
+    the decoder's roll chain), timed with CUDA events; the codec
+    program's fps on that batch (``tools.bench.
+    _device_codec_fps``, three runs: the headline ``value``) and
+    ``tools.benchmark_stages --frames 120``'s stage lines.  Uses only
+    names the port has had since its tools were ported, so a copy of
+    this script at the root of an older checkout profiles that
+    checkout's phase A the same way, in the same call."""
+    import torch
+    from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as bp
+    from new_bloom_filter_repo_tpu_torch.tools import bench as tb
+    from new_bloom_filter_repo_tpu_torch.tools import benchmark_stages as tbs
+    from new_bloom_filter_repo_tpu_torch.utils import profiling
+
+    frames = tb.make_clip()
+    stacked = torch_from(np.stack(frames), dev)
+    h, w = stacked.shape[1], stacked.shape[2]
+    tab = bp.blocked_tables(h * w, dev)
+    npad, nb = tab["npad"], tab["nb"]
+    stride = bp.motion_stride(h, w)
+    runs = [
+        ("_phase_a, F = 120", lambda: bp._phase_a(stacked, npad=npad,
+                                                  nb=nb)),
+        ("_phase_a_auto, F = 15", lambda: bp._phase_a_auto(
+            stacked[:CHUNK + 1], stride=stride, npad=npad, nb=nb))]
+    for label, fn in runs:
+        fn()
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            with profiling.trace(d):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            dev_ms, ops = trace_top_ops(d, reps)
+        log(f"  {label} at 1080p, C = 3 ({card}): device ops "
+            f"{dev_ms:.4f} ms a call; top five by device time:")
+        for name, ms, calls in ops:
+            log(f"    {ms:9.4f} ms  {calls:5.1f} calls  {name[:110]}")
+    # the torch-op programs next in line for a kernel (ROADMAP Queue 2)
+    # at the main path's chunk, a pan of (1, 2) px a frame
+    chunk = stacked[:CHUNK + 1]
+    shifts = torch.tensor([[1, 2]] * CHUNK, dtype=torch.int32, device=dev)
+    masks, _, vals = bp._phase_a_motion(chunk, shifts, npad=npad, nb=nb)
+    host_shifts = shifts.cpu().numpy()
+    for label, fn in (
+            ("_phase_a_packed", lambda: bp._phase_a_packed(chunk,
+                                                           npad=npad)),
+            ("_phase_a_packed_motion", lambda: bp._phase_a_packed_motion(
+                chunk, shifts, npad=npad)),
+            ("_tile_motion_best", lambda: bp._tile_motion_best(
+                chunk, tlog=bp.tile_log(h, w), stride=stride)),
+            ("_chain_apply_motion", lambda: bp._chain_apply_motion(
+                chunk[0], masks, vals, host_shifts,
+                shape=tuple(chunk.shape[1:])))):
+        log(f"  {label}, F = 15 at 1080p, C = 3: {time_ms(fn, 5):.4f} ms "
+            f"a call (CUDA events, warm, queued behind a spin) ({card})")
+    del stacked, chunk, masks, vals
+    torch.cuda.empty_cache()
+    for i in range(3):
+        fps, lossless, _ = tb._device_codec_fps(frames, device=dev)
+        log(f"  codec program, 1080p x 120 (tools.bench value), run {i}: "
+            f"{fps} fps, a rep {120 / fps * 1e3:.3f} ms, lossless "
+            f"{lossless} ({card})")
+        if not lossless:
+            raise AssertionError("the codec program was not lossless")
+    log("  tools.benchmark_stages --frames 120:")
+    if tbs.main(["--frames", "120"]) != 0:
+        raise AssertionError("benchmark_stages failed")
+
+
 def bench_batch_args(frames, dev):
     """The inputs ``tools/bench.py``'s codec program gives K1-K3 on the
     stacked batch ``frames`` (a base and F inter frames): phase A on the
@@ -848,14 +1096,15 @@ def phase_main_path(dev, bench_frames, pan_frames, tmp, card):
                os.path.join(tmp, "static.bfvc"), card)
     static = path_launches("static clip", ["blocked_encode_h",
                                            "blocked_membership_h",
-                                           "blocked_expand_chain"])
+                                           "blocked_expand_chain",
+                                           *PHASE_A_KERNELS])
     bk.reset_launches()
     pan_hist, _ = round_trip("phase 4 pan 1080p (synthetic, seed 0)",
                              pan_frames, dev, os.path.join(tmp, "pan.bfvc"),
                              card)
     pan = path_launches("pan clip", ["blocked_encode_h",
                                      "blocked_membership_h",
-                                     "blocked_expand"])
+                                     "blocked_expand", *PHASE_A_KERNELS])
     if not any(k.startswith("6>") for k in pan_hist):
         raise AssertionError("pan clip produced no type-6 motion record")
     return {n: static[n] + pan[n] for n in static}
@@ -992,7 +1241,7 @@ def phase_devices(dev, bench, pan, tmp, card):
     return path_launches("devices=", ["blocked_encode_h",
                                       "blocked_membership_h",
                                       "blocked_expand_chain",
-                                      "blocked_expand"])
+                                      "blocked_expand", *PHASE_A_KERNELS])
 
 
 # ---------------------------------------------------------------------------
@@ -1134,7 +1383,8 @@ def phase_planar(dev, pan, tmp, card):
                 raise AssertionError(f"planar frame {i} {pl} differs")
     log(f"    planes exact, U/V {dec[0].yuv_info['u_plane'].shape}")
     launches = path_launches("planar", ["blocked_encode_h",
-                                        "blocked_membership_h"])
+                                        "blocked_membership_h",
+                                        *PHASE_A_KERNELS])
     if launches["blocked_expand_chain"] + launches["blocked_expand"] == 0:
         raise AssertionError("planar decode launched neither K3 nor K4")
     return launches
@@ -1167,7 +1417,8 @@ def phase_byte_view(dev, clips, tmp, card):
                           os.path.join(tmp, "byte_view.bfvc"), card)
     return path_launches("byte view", ["blocked_encode_h",
                                        "blocked_membership_h",
-                                       "blocked_expand_chain"])
+                                       "blocked_expand_chain",
+                                       *PHASE_A_KERNELS])
 
 
 def bfv2_chunk(frames, dev):
@@ -1451,7 +1702,7 @@ STRESS_VH = (1, 4, 16)        # 32 to 512 value slots: fewer than changes
 STRESS_DENS = (1.0, 0.0, 0.5, 0.03, 0.3)
 STRESS_SPIN = 10_000_000      # ~5 ms of card time to queue a batch behind
 STRESS_KERNELS = ("blocked_encode_h", "blocked_encode",
-                  "blocked_expand_chain", "blocked_expand")
+                  "blocked_expand_chain", "blocked_expand", "motion_counts")
 
 
 def stress_pool(dev, seed, nbs=STRESS_NB, fs=STRESS_F):
@@ -1465,9 +1716,13 @@ def stress_pool(dev, seed, nbs=STRESS_NB, fs=STRESS_F):
     slots: fewer than the changes).  K3 and K4 take
     :func:`expand_edge_inputs`: pass densities from every item to none by
     frame, alternating flagged frames on two mixes of three, the same
-    vh.  The twins run once per mix, here."""
+    vh.  K7, which stages previous-frame rows in shared memory, takes F
+    frame pairs of 1-3 bytes a pixel from 24 x 37 up to 276 x 669, each
+    frame the last rolled with a fifth of it redrawn, at stride 4 or 8.
+    The twins run once per mix, here."""
     from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as bp
     from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+    from new_bloom_filter_repo_tpu_torch.ops import phase_a as pa
     from new_bloom_filter_repo_tpu_torch.ops.hashtables import blocked_tables
 
     ms = [1] + list(range(16, 385))
@@ -1493,6 +1748,9 @@ def stress_pool(dev, seed, nbs=STRESS_NB, fs=STRESS_F):
         flagged = range(i % 2, f, 2) if i % 3 else []
         *exp, base = expand_edge_inputs(f, nb, vh, dens, flagged, dev,
                                         seed=seed + i)
+        pairs = motion_pairs(f, 24 + 28 * (i % 10), 37 + 79 * (i % 9),
+                             1 + i % 3, dev, seed=seed + i)
+        stride = 4 if i % 2 else 8
         for name, kern, twin in (
                 ("blocked_encode_h",
                  lambda e=enc, k=kw: bk.blocked_encode_h(*e, **k),
@@ -1506,10 +1764,31 @@ def stress_pool(dev, seed, nbs=STRESS_NB, fs=STRESS_F):
                  bk.blocked_expand_chain_ref(*exp, base, vh=vh)),
                 ("blocked_expand",
                  lambda e=exp, v=vh: bk.blocked_expand(*e, vh=v),
-                 bk.blocked_expand_ref(*exp, vh=vh))):
+                 bk.blocked_expand_ref(*exp, vh=vh)),
+                ("motion_counts",
+                 lambda p=pairs, s_=stride: pa.motion_counts(*p, s_),
+                 pa.motion_counts_ref(*pairs, stride))):
             want = twin if isinstance(twin, tuple) else (twin,)
             pool[name].append((label, kern, want))
     return pool
+
+
+def motion_pairs(f, h, w, c, dev, seed):
+    """(prev, curr) of ``f`` frame pairs of h x w pixels of c bytes on
+    ``dev``: each frame the last rolled by (1, 2) with a fifth of its
+    pixels redrawn, so the counts spread over the candidates."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    shape = (h, w) if c == 1 else (h, w, c)
+    frames = [rng.integers(0, 256, shape, dtype=np.uint8)]
+    for _ in range(f):
+        nxt = np.roll(frames[-1], (1, 2), axis=(0, 1))
+        redraw = rng.random((h, w)) < 0.2
+        nxt[redraw] = rng.integers(0, 256, nxt[redraw].shape, dtype=np.uint8)
+        frames.append(nxt)
+    stacked = torch.from_numpy(np.stack(frames)).to(dev)
+    return stacked[:-1], stacked[1:]
 
 
 def stress_round(cases, order, mode, side):
@@ -1568,7 +1847,7 @@ class StressSide:
 
 def phase_stress(dev, rounds=(("quiet", 200), ("busy", 80), ("split", 40)),
                  seed=1000, nbs=STRESS_NB, fs=STRESS_F):
-    """Phase 12.  K1, K5a, K3 and K4 launched many thousands of times
+    """Phase 12.  K1, K5a, K3, K4 and K7 launched many thousands of times
     over the stress pool, every launch held to its plain twin with
     tolerance 0.  Each round launches every mix of one kernel, in a new
     random order, back to back behind a spin of the card, and compares
@@ -1720,7 +1999,8 @@ def phase_files(dev, bench, pan, f32_frames, tmp, card):
             f"(a) {name} 1080p 4:2:0 Y4M, compress / decompress", y4m[name],
             len(clip), card, ["compress"])
     launches = path_launches("Y4M files", ["blocked_encode_h",
-                                           "blocked_membership_h"])
+                                           "blocked_membership_h",
+                                           *PHASE_A_KERNELS])
     if launches["blocked_expand_chain"] + launches["blocked_expand"] == 0:
         raise AssertionError("Y4M decode launched neither K3 nor K4")
     runs.append(launches)
@@ -1736,7 +2016,8 @@ def phase_files(dev, bench, pan, f32_frames, tmp, card):
                       ["process-yuv", "--width", str(W), "--height", str(H),
                        "--format", fmt])
     runs.append(path_launches("raw YUV files", ["blocked_encode_h",
-                                                "blocked_membership_h"]))
+                                                "blocked_membership_h",
+                                                *PHASE_A_KERNELS]))
 
     # (c) a directory of float32 EXR frames (zip) through the byte view
     bk.reset_launches()
@@ -1760,7 +2041,8 @@ def phase_files(dev, bench, pan, f32_frames, tmp, card):
                os.path.join(tmp, "exr.bfvc"), card)
     runs.append(path_launches("EXR frames", ["blocked_encode_h",
                                              "blocked_membership_h",
-                                             "blocked_expand_chain"]))
+                                             "blocked_expand_chain",
+                                             *PHASE_A_KERNELS]))
     fix = os.path.join(REPO, "tests", "fixtures")
     piz = exr.read_exr(os.path.join(fix, "golden_piz.exr"))
     if not np.array_equal(piz.view(np.uint16),
@@ -1820,9 +2102,9 @@ def phase_files(dev, bench, pan, f32_frames, tmp, card):
 # ---------------------------------------------------------------------------
 
 MESH_CLIPS = {"static": ["blocked_encode_h", "blocked_membership_h",
-                         "blocked_expand_chain"],
+                         "blocked_expand_chain", *PHASE_A_KERNELS],
               "pan": ["blocked_encode_h", "blocked_membership_h",
-                      "blocked_expand"]}
+                      "blocked_expand", *PHASE_A_KERNELS]}
 CHILD_LIMIT_S = 300
 
 
@@ -2367,7 +2649,8 @@ def phase_tools(dev, tmp, card, suite_frames=SUITE_FRAMES):
     log(f"  (a) tools.bench ran in {time.perf_counter() - t0:.2f} s "
         f"({card}); its JSON line is the line above")
     parts["a"] = path_launches("(a) tools.bench", [
-        "blocked_encode_h", "blocked_membership_h", "blocked_expand_chain"])
+        "blocked_encode_h", "blocked_membership_h", "blocked_expand_chain",
+        *PHASE_A_KERNELS])
     if out.get("value_4k") is None:
         raise AssertionError(f"(a) value_4k is None: {out.get('note_4k')}")
     bad = [k for k in ("lossless", "production_measured", "lossless_4k",
@@ -2388,7 +2671,8 @@ def phase_tools(dev, tmp, card, suite_frames=SUITE_FRAMES):
         raise AssertionError(f"(b) benchmark_stages returned {rc}")
     log(f"  (b) ran in {time.perf_counter() - t0:.2f} s ({card})")
     parts["b"] = path_launches("(b) tools.benchmark_stages", [
-        "blocked_encode_h", "blocked_membership_h", "blocked_expand_chain"])
+        "blocked_encode_h", "blocked_membership_h", "blocked_expand_chain",
+        *PHASE_A_KERNELS])
 
     t0 = time.perf_counter()
     vdir = os.path.join(tmp, "suite")
@@ -2455,7 +2739,8 @@ def phase_tools(dev, tmp, card, suite_frames=SUITE_FRAMES):
     finally:
         for n, fn in originals.items():
             setattr(tbc, n, fn)
-    parts["c"] = path_launches("(c) tools.benchmark_compression", [])
+    parts["c"] = path_launches("(c) tools.benchmark_compression",
+                               list(PHASE_A_KERNELS))
     log(f"  (c) K4 launches by clip, codec and frames: {k4 or 'none'}; "
         f"(c) took {time.perf_counter() - t0:.2f} s")
     return parts, k4
@@ -2489,8 +2774,8 @@ def main() -> int:
     _build.load()
     built = ("found already built" if _build.build_seconds is None
              else f"built in {_build.build_seconds:.2f} s")
-    log(f"  kernels from {CSRC} {built} (nvcc "
-        f"{' '.join(_build.NVCC_FLAGS)})")
+    log(f"  kernels from {CSRC} and {CSRC_PHASE_A} {built} (nvcc "
+        f"{' '.join(_build.NVCC_FLAGS)}, one a source, then linked)")
     ptxas = {}
     for name, spills, regs in re.findall(
             r"Compiling entry function '\S*?(k\d[ab]?_[a-z_]+)\S*'.*?"
@@ -2499,6 +2784,10 @@ def main() -> int:
         ptxas[name] = (int(regs), int(spills))
         log(f"    ptxas {name}: {regs} registers, {spills} bytes spilled")
 
+    if "--profile-phase-a" in sys.argv[1:]:
+        log(f"phase A profile ({smi}):")
+        phase_a_profile(dev, smi)
+        return 0
     if "--damaged-only" in sys.argv[1:]:
         with tempfile.TemporaryDirectory() as tmp:
             log(f"phase 15 damaged streams through the kernels, CIF only "
@@ -2530,7 +2819,6 @@ def main() -> int:
     path_chunks += [(f"byte view {label} chunk",
                      [ImprovedVideoCompressor._byte_view(f) for f in clip])
                     for label, clip in byte_clips]
-    stats = phase_kernels(dev, bench, path_chunks)
     from new_bloom_filter_repo_tpu_torch.tools import bench as tools_bench
     t0 = time.perf_counter()
     batches = [("bench batch 1080p x 120", tools_bench.make_clip()),
@@ -2538,7 +2826,19 @@ def main() -> int:
                    tools_bench.FRAMES_4K, 2160, 3840, seed=1))]
     log(f"  the bench batches of tools/bench.py generated on the host in "
         f"{time.perf_counter() - t0:.2f} s")
+    log("  phase A (K6, K7) first: its outputs are K1's inputs below")
+    mixes = [("1080p static chunk (bench clip)", bench[:CHUNK + 1], True,
+              True),
+             ("1080p pan chunk", pan[:CHUNK + 1], True, False)]
+    mixes += [(label, clip[:CHUNK + 1], True, False)
+              for label, clip in path_chunks]
+    mixes += [(label, frames, False, False) for label, frames in batches]
+    stats = phase_phase_a(dev, mixes)
+    stats.update(phase_kernels(dev, bench, path_chunks))
     at_bench = phase_bench_shapes(dev, batches)
+    for label, recs in at_bench.items():
+        recs["phase_a_diff"] = stats["phase_a_diff"]["at_mixes"][
+            f"{label}, no shifts"]
     del batches
     if "--kernels-only" in sys.argv[1:]:
         return 0
@@ -2560,7 +2860,7 @@ def main() -> int:
         phase_bfv2(dev, bench[:16], tmp, smi)
         log(f"phase 11 near-lossless, keyframe mode, binary codecs ({smi}):")
         phase_near_lossless(dev, bench[:16], tmp, smi)
-        log(f"phase 12 stress of K1, K5a, K3, K4 against their twins "
+        log(f"phase 12 stress of K1, K5a, K3, K4, K7 against their twins "
             f"({smi}):")
         phase_stress(dev)
         log(f"phase 13 files, the CLI, the harness and the tools ({smi}):")
@@ -2577,12 +2877,12 @@ def main() -> int:
     launches = {n: sum(r[n] for r in runs) for n in KERNELS}
 
     kernels = []
-    for n, (short, line, entry) in KERNELS.items():
+    for n, (short, replaces, entry, source) in KERNELS.items():
         st = stats[n]
         regs, spills = ptxas.get(entry, (None, None))
         kernels.append({
-            "name": f"{short} {n}", "route": "cuda", "source": CSRC,
-            "replaces": f"{TPU_KERNELS}:{line}", "launches": launches[n],
+            "name": f"{short} {n}", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[n],
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "bytes": st["bytes"],

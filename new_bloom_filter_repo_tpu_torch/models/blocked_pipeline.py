@@ -3,7 +3,9 @@
 The port of ``new_bloom_filter_repo_tpu.models.blocked_pipeline``.  Per
 chunk of up to ``_CHUNK`` inter frames: phase A (exact diff masks,
 per-block change counts, 24-bit packed pixels, and the global-motion
-search) runs as torch ops on the encoder's device; the host runs the
+search) runs on the encoder's device as kernels K7 (the search's counts)
+and K6 (the diff; ``ops/phase_a.py``), with the shift gate between them
+as torch ops; the host runs the
 reference float64 parameter math (p, k, l, then m = round(l / nb)); one
 kernel launch Bloom-encodes the chunk (``ops/blocked.py`` K1); the host
 assembles records.  Decode mirrors it: parse, membership kernel (K2),
@@ -54,6 +56,7 @@ from new_bloom_filter_repo_tpu_torch.models.bloom import (
     optimal_compression_params,
 )
 from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+from new_bloom_filter_repo_tpu_torch.ops import phase_a as pa
 from new_bloom_filter_repo_tpu_torch.ops.hashtables import (
     SUPER,
     blocked_tables,
@@ -80,52 +83,22 @@ FILTER_GATE = 0.25    # try filtered-residual (type 14) trials only
 
 
 # ---------------------------------------------------------------------------
-# Phase A: diff masks, per-block counts, packed pixels (torch ops)
+# Phase A: diff masks, per-block counts, packed pixels (ops/phase_a.py:
+# K6, and K7 for the motion search, on a CUDA device; their twins on a CPU)
 # ---------------------------------------------------------------------------
 
-def _pack_pixels(frames_flat: torch.Tensor) -> torch.Tensor:
-    """(F, n, C) uint8 -> (F, n) int32 24-bit packed (C <= 3)."""
-    c = frames_flat.shape[-1]
-    v = frames_flat[..., 0].to(torch.int32)
-    if c > 1:
-        v = v | (frames_flat[..., 1].to(torch.int32) << 8)
-    if c > 2:
-        v = v | (frames_flat[..., 2].to(torch.int32) << 16)
-    return v
-
-
-def _packed_hw(frames: torch.Tensor) -> torch.Tensor:
-    """(B, h, w[, c]) uint8 -> (B, h, w) int32 packed pixels."""
-    b, h, w = frames.shape[:3]
-    arr = frames if frames.ndim == 4 else frames[..., None]
-    return _pack_pixels(arr.reshape(b, h * w, arr.shape[-1])).reshape(b, h, w)
-
-
-def _to_blocks(x: torch.Tensor, npad: int, nb: int) -> torch.Tensor:
-    """(F, n) -> (F, nb, IPB), zero-padded to npad items."""
-    f, n = x.shape
-    if npad != n:
-        x = torch.nn.functional.pad(x, (0, npad - n))
-    return x.reshape(f, nb, bk.IPB)
-
-
-def _masks_counts_vals(neq: torch.Tensor, vals: torch.Tensor, npad: int,
-                       nb: int):
-    """Block the (F, n) change mask and packed pixels; count per block."""
-    masks = _to_blocks(neq.to(torch.uint8), npad, nb)
-    counts = masks.sum(dim=2, dtype=torch.int32)
-    return masks, counts, _to_blocks(vals, npad, nb)
+# The JAX module's names for two of phase A's helpers
+_pack_pixels = pa.pack_pixels
+_roll2d = pa.roll2d
 
 
 def _phase_a_pair(prev, curr, *, npad: int, nb: int):
     """Masks + per-block counts + packed pixels from (prev, curr) frame
-    pairs.  Pixels are packed to 24-bit ints first, so the change mask
-    is one int32 compare (any channel differs, for c <= 3) and the
-    packed values are reused as the witness payload."""
-    f = curr.shape[0]
-    pp = _packed_hw(prev).reshape(f, -1)
-    pc = _packed_hw(curr).reshape(f, -1)
-    return _masks_counts_vals(pc != pp, pc, npad, nb)
+    pairs (K6).  Pixels are packed to 24-bit ints, so the change mask is
+    one int32 compare (any channel differs, for c <= 3) and the packed
+    values are reused as the witness payload."""
+    return pa.phase_a_diff(prev.contiguous(), curr.contiguous(), None,
+                           npad, nb)
 
 
 def _phase_a(stacked, *, npad: int, nb: int):
@@ -139,22 +112,11 @@ def _phase_a(stacked, *, npad: int, nb: int):
 # to near-static cost.  np.roll (wrap-around) semantics on (H, W); the
 # wrapped edge strip self-codes as ordinary changed pixels.
 
-MOTION_RADIUS = 7      # search window: shifts in [-R, R]^2
-MOTION_STRIDE = 4      # subsampled count grid (n/16 samples)
+MOTION_RADIUS = pa.MOTION_RADIUS   # search window: shifts in [-R, R]^2
+MOTION_STRIDE = pa.MOTION_STRIDE   # subsampled count grid (n/16 samples)
 MOTION_ACCEPT = 0.7    # accept the best shift iff count <= 0.7 * count(0,0)
 MOTION_ACCEPT_10 = 7   # ... which the gates test as cb * 10 <= c0 * 7
 MOTION_MIN_C0 = 64     # ... and the zero-shift count is worth beating
-
-
-def _roll2d(img: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor):
-    """Per-row np.roll(img[i], (dy[i], dx[i]), axis=(0, 1)) for a
-    (B, h, w) batch with (B,) shift tensors (no host sync)."""
-    b, h, w = img.shape
-    dev = img.device
-    ys = (torch.arange(h, device=dev) - dy.to(torch.int64)[:, None]) % h
-    xs = (torch.arange(w, device=dev) - dx.to(torch.int64)[:, None]) % w
-    bi = torch.arange(b, device=dev)[:, None, None]
-    return img[bi, ys[:, :, None], xs[:, None, :]]
 
 
 def _first_argmin(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -169,32 +131,12 @@ def _first_argmin(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.where(x == mn, idx, size).min(dim=dim).values
 
 
-def _shift_mismatch(prev_u8, curr_u8, stride: int):
-    """Yield, for each dy in [-R, R], the (B, sh, D, sw) mismatch map of
-    the stride-subsampled current frame against the previous frame
-    shifted by (dy, dx) for every dx in [-R, R] (D = 2R + 1)."""
-    prev = _packed_hw(prev_u8)
-    curr = _packed_hw(curr_u8)
-    h, w = curr.shape[1], curr.shape[2]
-    dev = curr.device
-    ys = torch.arange(0, h, stride, device=dev)
-    xs = torch.arange(0, w, stride, device=dev)
-    cs = curr[:, ys][:, :, xs]                          # (B, sh, sw)
-    d = torch.arange(-MOTION_RADIUS, MOTION_RADIUS + 1, device=dev)
-    px = (xs[None, :] - d[:, None]) % w                 # (D, sw) by dx
-    for dy in range(-MOTION_RADIUS, MOTION_RADIUS + 1):
-        rows = prev[:, (ys - dy) % h]                   # (B, sh, w)
-        yield rows[:, :, px] != cs[:, :, None, :]       # (B, sh, D, sw)
-
-
 def _motion_counts_pair(prev_u8, curr_u8, stride: int = MOTION_STRIDE):
     """Per-(prev, curr)-pair subsampled mismatch counts over the shift
-    window.  prev_u8/curr_u8: (B, h, w[, c]) uint8; returns (B, C) i32,
-    candidate index (dy+R)*(2R+1)+(dx+R)."""
-    rows = [ne.sum(dim=(1, 3), dtype=torch.int32)
-            for ne in _shift_mismatch(prev_u8, curr_u8, stride)]
-    b = curr_u8.shape[0]
-    return torch.stack(rows, dim=1).reshape(b, -1)
+    window (K7).  prev_u8/curr_u8: (B, h, w[, c]) uint8; returns (B, C)
+    i32, candidate index (dy+R)*(2R+1)+(dx+R)."""
+    return pa.motion_counts(prev_u8.contiguous(), curr_u8.contiguous(),
+                            stride)
 
 
 def _motion_counts(stacked, *, stride: int = MOTION_STRIDE):
@@ -298,7 +240,7 @@ def _tile_motion_best(stacked, *, tlog: int, stride: int = MOTION_STRIDE):
     ty, tx = -(-sh // spt), -(-sw // spt)
     pad_y, pad_x = ty * spt - sh, tx * spt - sw
     rows = []
-    for ne in _shift_mismatch(stacked[:-1], stacked[1:], stride):
+    for ne in pa.shift_mismatch(stacked[:-1], stacked[1:], stride):
         ne = ne.permute(0, 2, 1, 3).to(torch.int32)     # (B, D, sh, sw)
         ne = torch.nn.functional.pad(ne, (0, pad_x, 0, pad_y))
         d = ne.shape[1]
@@ -423,15 +365,11 @@ def _zoom_fit(tsh: np.ndarray, tlog: int, h: int, w: int) -> float:
 
 
 def _phase_a_motion_pair(prev, curr, shifts, *, npad: int, nb: int):
-    """Motion-diff masks/counts/values from (prev, curr, shift) rows:
-    the diff runs against roll(prev, (dy, dx)); zero shifts reproduce
-    :func:`_phase_a_pair` exactly."""
-    b = curr.shape[0]
-    pp = _packed_hw(prev)
-    pc = _packed_hw(curr)
-    rolled = _roll2d(pp, shifts[:, 0], shifts[:, 1])
-    return _masks_counts_vals((pc != rolled).reshape(b, -1),
-                              pc.reshape(b, -1), npad, nb)
+    """Motion-diff masks/counts/values from (prev, curr, shift) rows
+    (K6): the diff runs against roll(prev, (dy, dx)); zero shifts
+    reproduce :func:`_phase_a_pair` exactly."""
+    return pa.phase_a_diff(prev.contiguous(), curr.contiguous(),
+                           shifts.contiguous(), npad, nb)
 
 
 def _phase_a_motion(stacked, shifts, *, npad: int, nb: int):
@@ -454,7 +392,7 @@ def _packbits_rows(flat: torch.Tensor, npad: int) -> torch.Tensor:
 def _phase_a_packed_motion(stacked, shifts, *, npad: int):
     """packbits(motion diff mask) — the :func:`_phase_a_packed` variant
     for chunks carrying nonzero shifts."""
-    packed = _packed_hw(stacked)
+    packed = pa.packed_hw(stacked)
     rolled_prev = _roll2d(packed[:-1], shifts[:, 0], shifts[:, 1])
     f = packed.shape[0] - 1
     return _packbits_rows((packed[1:] != rolled_prev).reshape(f, -1), npad)
@@ -508,8 +446,8 @@ def _unpack_vseg_bytes(vb: torch.Tensor, channels: int) -> torch.Tensor:
 
 def _pack_base(base: torch.Tensor, *, npad: int, nb: int) -> torch.Tensor:
     """(h, w[, c]) uint8 -> (NB, IPB) i32 24-bit packed pixels."""
-    packed = _packed_hw(base[None]).reshape(1, -1)
-    return _to_blocks(packed, npad, nb)[0]
+    packed = pa.packed_hw(base[None]).reshape(1, -1)
+    return pa.to_blocks(packed, npad, nb)[0]
 
 
 def _unpack_frames(packed: torch.Tensor, *, shape) -> torch.Tensor:
@@ -532,7 +470,7 @@ def _chain_apply_motion(base: torch.Tensor, masks, vals, shifts, *, shape):
     f = masks.shape[0]
     m2 = masks.reshape(f, -1)[:, :n].reshape(f, h, w)
     v2 = vals.reshape(f, -1)[:, :n].reshape(f, h, w)
-    prev = _packed_hw(base[None])[0]
+    prev = pa.packed_hw(base[None])[0]
     out = []
     for j in range(f):
         dy, dx = int(shifts[j, 0]), int(shifts[j, 1])

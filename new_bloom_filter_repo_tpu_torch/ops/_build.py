@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``ops/csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface, at first use, into
-``build/kernels/`` at the repository root (listed in ``.gitignore``).
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` a source, all started together, and linked into one shared
+library with a plain C interface, at first use, into ``build/kernels/``
+at the repository root (listed in ``.gitignore``).
 The library's file name carries a hash of the sources and flags, so an
 edited source builds anew and an unchanged one is reused.  The library
 is loaded with ``ctypes``; every entry point takes device pointers as
@@ -39,9 +40,14 @@ GMAX = 16
 # such a frame (a valid one has floor(k) <= 12); without the cap its k
 # would set the kernels' loop count.  The entry points refuse more.
 MAX_K_LANES = 32
+# The global-motion search window is [-MOTION_RADIUS, MOTION_RADIUS]^2
+# (K7 counts one candidate a thread, so (2R + 1)^2 <= 256).
+MOTION_RADIUS = 7
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              f"-DNBF_GMAX={GMAX}", f"-DNBF_MAX_K_LANES={MAX_K_LANES}"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DNBF_GMAX={GMAX}", f"-DNBF_MAX_K_LANES={MAX_K_LANES}",
+              f"-DNBF_MOTION_RADIUS={MOTION_RADIUS}"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -58,6 +64,8 @@ _SIGNATURES = {
     "nbf_k4_expand": [_P] * 7 + [_I] * 3 + [_P],
     "nbf_k5a_encode": [_P] * 12 + [_I] * 6 + [_P],
     "nbf_k5b_membership": [_P, _I] + [_P] * 8 + [_I] * 5 + [_P],
+    "nbf_k6_phase_a_diff": [_P] * 6 + [_I] * 5 + [_P],
+    "nbf_k7_motion_counts": [_P] * 3 + [_I] * 7 + [_P],
 }
 
 
@@ -78,7 +86,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     """Path of the built library for the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as fh:
@@ -86,24 +94,46 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libnbf_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run(procs, timeout: float = 600) -> list:
+    """Wait for every ``(argv, Popen)``; return their outputs, or kill
+    the rest and raise on the first that fails or outlives ``timeout``."""
+    outs = []
+    try:
+        for argv, proc in procs:
+            out, _ = proc.communicate(timeout=timeout)
+            outs.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(argv)}\n{out}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def _start(argv):
+    return argv, subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+
+
 def _compile(out: str) -> None:
     global build_seconds, build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [s for s in _sources() if s.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    tmp = os.path.join(work, "lib.so")
+    objs = [os.path.join(work, os.path.basename(s) + ".o") for s in cu]
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True, timeout=600)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{build_log}")
+        logs = _run([_start([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s])
+                     for s, o in zip(cu, objs)])
+        logs += _run([_start([_nvcc(), *LINK_FLAGS, "-o", tmp, *objs])])
+        build_log = "".join(logs)
         os.replace(tmp, out)          # atomic: readers never see a partial
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
 
 

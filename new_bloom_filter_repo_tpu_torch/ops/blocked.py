@@ -21,7 +21,7 @@ its tensors lie:
 
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``<wrapper>.launches``; :func:`reset_launches` and :func:`launches` read
-and clear them all.
+and clear them all, phase A's K6 and K7 (``ops/phase_a.py``) included.
 
 Dtype conventions: the u32 quantities of the JAX interface (the
 activation-hash halves and the per-frame thresholds ``thi``/``tlo``)
@@ -574,17 +574,23 @@ def blocked_expand_chain(passes, wit, raw_mask, flags, vseg, base_packed,
 
 _WRAPPERS = (blocked_encode_h, blocked_membership_h, blocked_expand_chain,
              blocked_expand, blocked_encode, blocked_membership)
+for _fn in _WRAPPERS:
+    _fn.launches = 0
+
+
+def _all_wrappers():
+    """K1-K5b's wrappers, then phase A's (K6, K7; ``ops/phase_a.py``)."""
+    from new_bloom_filter_repo_tpu_torch.ops import phase_a
+
+    return _WRAPPERS + phase_a._WRAPPERS
 
 
 def reset_launches() -> None:
-    """Set every wrapper's launch count to 0."""
-    for fn in _WRAPPERS:
+    """Set every kernel wrapper's launch count to 0 (K1-K7)."""
+    for fn in _all_wrappers():
         fn.launches = 0
 
 
 def launches() -> Dict[str, int]:
-    """Launch count of each kernel wrapper since the last reset."""
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
-
-
-reset_launches()
+    """Launch count of each kernel wrapper (K1-K7) since the last reset."""
+    return {fn.__name__: fn.launches for fn in _all_wrappers()}

@@ -1,4 +1,4 @@
-"""K1-K5b and the port's main and mesh paths on an NVIDIA card.
+"""K1-K7 and the port's main and mesh paths on an NVIDIA card.
 
 Marked ``cuda``: each test skips without a card.  On the card, run
 
@@ -19,6 +19,8 @@ from new_bloom_filter_repo_tpu_torch.models.video import (
     ImprovedVideoCompressor,
 )
 from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+from new_bloom_filter_repo_tpu_torch.ops import phase_a as pa
+from new_bloom_filter_repo_tpu_torch.ops.hashtables import npad_of
 from new_bloom_filter_repo_tpu_torch.parallel.mesh import make_mesh
 from new_bloom_filter_repo_tpu_torch.utils.synthetic import (
     SUITE,
@@ -97,7 +99,9 @@ def test_kernels_equal_twins(dev, flagged):
                              "blocked_expand_chain": 1,
                              "blocked_expand": 1,
                              "blocked_encode": 0,
-                             "blocked_membership": 0}
+                             "blocked_membership": 0,
+                             "phase_a_diff": 0,
+                             "motion_counts": 0}
 
 
 @pytest.mark.parametrize("flagged", [False, True])
@@ -182,6 +186,78 @@ def test_devices_mesh_stream_equals_one_device(dev, tmp_path):
             assert a.read() == b.read()
         for g, w in zip(comp.decompress_video(path), frames):
             np.testing.assert_array_equal(g, w)
+
+
+# Phase A on the card, K6 and K7 (h, w, C, F, stride): frames of odd
+# size, so the current frames of a stacked chunk start off any 4-byte
+# boundary, and n not a multiple of 1024 (24 x 37: 7 whole padding
+# blocks); gray; a 1080p pair at the main path's stride
+PHASE_A_SHAPES = [(24, 37, 3, 9, 4), (96, 130, 1, 5, 4), (64, 48, 2, 3, 8),
+                  (1080, 1920, 3, 2, 8)]
+
+
+def phase_a_chunk(dev, h, w, c, f, seed=0):
+    """A stacked (F+1, h, w[, c]) chunk on the card: each frame the last
+    rolled by (1, 2) with a fifth of its pixels redrawn, and shifts over
+    0, +-7, +-h, +-w and both ends of int32."""
+    rng = np.random.default_rng(seed)
+    shape = (h, w) if c == 1 else (h, w, c)
+    frames = [rng.integers(0, 256, shape, dtype=np.uint8)]
+    for _ in range(f):
+        nxt = np.roll(frames[-1], (1, 2), axis=(0, 1)).copy()
+        redraw = rng.random((h, w)) < 0.2
+        nxt[redraw] = rng.integers(0, 256, nxt[redraw].shape, dtype=np.uint8)
+        frames.append(nxt)
+    vals = [0, 7, -7, h, -h, w, -w, (1 << 31) - 1, -(1 << 31)]
+    shifts = np.stack([np.resize(vals, f), np.resize(vals[::-1], f)], 1)
+    return (torch.from_numpy(np.stack(frames)).to(dev),
+            torch.from_numpy(shifts.astype(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("shape", PHASE_A_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_phase_a_kernels_equal_twins(dev, shape):
+    h, w, c, f, stride = shape
+    stacked, shifts = phase_a_chunk(dev, h, w, c, f, seed=h)
+    prev, curr = stacked[:-1], stacked[1:]
+    npad = npad_of(h * w)
+    nb = npad // IPB
+    bk.reset_launches()
+    for sh in (None, shifts, torch.zeros_like(shifts)):
+        same(pa.phase_a_diff(prev, curr, sh, npad, nb),
+             pa.phase_a_diff_ref(prev, curr, sh, npad, nb))
+    same(pa.motion_counts(prev, curr, stride),
+         pa.motion_counts_ref(prev, curr, stride))
+    same(bp._phase_a_auto(stacked, stride=stride, npad=npad, nb=nb),
+         tuple(x.to(dev) for x in bp._phase_a_auto(
+             stacked.cpu(), stride=stride, npad=npad, nb=nb)))
+    torch.cuda.synchronize()
+    launched = bk.launches()
+    assert launched["phase_a_diff"] == 4 and launched["motion_counts"] == 2
+
+
+def test_phase_a_wrappers_raise_instead_of_falling_back(dev):
+    stacked, shifts = phase_a_chunk(dev, 24, 37, 3, 2)
+    prev, curr = stacked[:-1], stacked[1:]
+    with pytest.raises(TypeError, match="curr must be torch.uint8"):
+        pa.phase_a_diff(prev, curr.to(torch.int32), None, 8192, 8)
+    with pytest.raises(TypeError, match="shifts must be torch.int32"):
+        pa.phase_a_diff(prev, curr, shifts.long(), 8192, 8)
+    with pytest.raises(ValueError, match="prev must be contiguous"):
+        pa.motion_counts(prev.transpose(1, 2).contiguous().transpose(1, 2),
+                         curr, 4)
+    with pytest.raises(ValueError, match="prev is on cpu"):
+        pa.phase_a_diff(prev.cpu(), curr, None, 8192, 8)
+    with pytest.raises(ValueError, match="shifts is on cpu"):
+        pa.phase_a_diff(prev, curr, shifts.cpu(), 8192, 8)
+    with pytest.raises(ValueError, match="bad geometry"):
+        pa.phase_a_diff(prev, curr, None, 8192, 7)
+    bk.reset_launches()
+    empty = stacked[:0]
+    masks, counts, vals = pa.phase_a_diff(empty, empty, None, 8192, 8)
+    assert masks.shape == (0, 8, IPB) and vals.shape == (0, 8, IPB)
+    assert pa.motion_counts(empty, empty, 4).shape == (0, pa.CANDIDATES)
+    assert bk.launches()["phase_a_diff"] == 0
 
 
 def test_wrapper_raises_instead_of_falling_back(dev):

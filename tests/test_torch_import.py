@@ -27,6 +27,7 @@ def test_port_and_chip_smoke_import_without_jax():
         "import new_bloom_filter_repo_tpu_torch as p\n"
         "import new_bloom_filter_repo_tpu_torch.models.video\n"
         "import new_bloom_filter_repo_tpu_torch.ops.blocked\n"
+        "import new_bloom_filter_repo_tpu_torch.ops.phase_a\n"
         "import new_bloom_filter_repo_tpu_torch.ops._build\n"
         "import new_bloom_filter_repo_tpu_torch.parallel.mesh\n"
         "import new_bloom_filter_repo_tpu_torch.parallel.blocked_batch\n"

@@ -279,7 +279,9 @@ def test_cpu_calls_do_not_count_launches():
                               "blocked_expand_chain": 0,
                               "blocked_expand": 0,
                               "blocked_encode": 0,
-                              "blocked_membership": 0}
+                              "blocked_membership": 0,
+                              "phase_a_diff": 0,
+                              "motion_counts": 0}
 
 
 # ---------------------------------------------------------------------------
