@@ -12,20 +12,23 @@ Drives the port's main path, ``ImprovedVideoCompressor(device="cuda")``
 ``decompress_video`` at 1080p, its multi-device paths (the mesh dry
 runs and ``devices=``), its other profiles and modes and its file paths
 (the command line, Y4M / raw YUV / EXR in and out), after building
-the hand-written Hopper kernels K1-K7 from
+the hand-written Hopper kernels K1-K8 from
 ``new_bloom_filter_repo_tpu_torch/ops/csrc`` and holding each against
 its plain PyTorch twin on the card.  Phases:
 
 1. device: the card, its power limit, the kernel build;
 2. kernel vs twin.  First phase A, whose outputs are K1's inputs
-   below: K7 (the motion search's counts) and K6 (masks, counts and
-   packed pixels) against their twins, tolerance 0, on the first chunk
-   (F = 15) of the 1080p bench clip and of the pan clip with motion on
-   (K7 at the path's stride, K6 on the shifts the search picks and with
-   no shifts), on the same chunks of the other paths below (the planar
-   U plane, each byte-view clip) and on ``tools/bench.py``'s batches
+   below: K7 (the motion search's counts), K8 (the residual trials'
+   per-tile search) and K6 (masks, counts and packed pixels) against
+   their twins, tolerance 0, on the first chunk (F = 15) of the 1080p
+   bench clip and of the pan clip with motion on (K7 at the path's
+   stride, K8 at its tile side, K6 on the shifts the search picks and
+   with no shifts), on the same chunks of the other paths below (the
+   planar U plane, each byte-view clip), on a 4K chunk (the first 16
+   frames of the 4K bench batch) and on ``tools/bench.py``'s batches
    without motion (1080p x 120, 4K x 24), each call timed warm and cold
-   with its twin, bytes and bound.  Then K1-K5b at the 1080p chunk
+   with its twin, bytes, operations and bound (K7 beside its PR 13
+   time).  Then K1-K5b at the 1080p chunk
    shapes (F = 15, NB = 2032), on the inputs of a real chunk and on a mix with edge-case filter widths,
    pass-through flags and raw masks, at the shapes the other paths
    give the kernels: the first chunk of the phase-8 U plane (960x540,
@@ -50,8 +53,10 @@ its plain PyTorch twin on the card.  Phases:
    pixels;
 3. the bench clip (1920x1080x3, 31 frames), round trip bit-exact;
 4. the synthetic ``pan`` clip (seed 0, 31 frames, 1080p), round trip
-   bit-exact, with type-6 motion records; the launches of each kernel
-   per clip of phases 3 and 4 are printed;
+   bit-exact, with type-6 motion records; then 8 frames of the ``zoom``
+   class at 1080p, whose residual trials run the per-tile search (K8),
+   round trip bit-exact and ``.bfvc`` byte-identical to the CPU port's;
+   the launches of each kernel per clip of phases 3 and 4 are printed;
 5. CIF clips (352x288, 16 frames) encoded on the card and on the CPU
    (the twins and the CPU torch ops) to identical ``.bfvc`` bytes: the
    blocked profile, ``profile="planar"`` (I420), uint16 frames (the
@@ -87,12 +92,14 @@ its plain PyTorch twin on the card.  Phases:
     bloom_core and median torch ops timed at 1080p;
 12. stress of the kernels whose shared-memory buffers are rewritten
     within a launch (K1 and K5a double-buffer the sub-filter, K3 and K4
-    double-buffer by frame parity, K7 restages previous-frame rows for
-    every sample row): 60 seeded mixes a kernel (NB 64 to 513, F of 1,
-    2, 15, 16 and 17, m across 1 and 16..384, change and pass densities
-    from none to every item, alternating flagged frames, vh of 1, 4 and
-    16 with more changes than slots; K7 on frames of 1-3 bytes a pixel
-    from 24 x 37 to 276 x 669 at stride 4 and 8), each launched 320
+    double-buffer by frame parity, K7 and K8 land previous rows ahead of
+    the row they pack and K8 alternates two sets of tile counts): 60
+    seeded mixes a kernel (NB 64 to 513, F of 1, 2, 15, 16 and 17, m
+    across 1 and 16..384, change and pass densities from none to every
+    item, alternating flagged frames, vh of 1, 4 and 16 with more
+    changes than slots; K7 and K8 on frames of 1-3 bytes a pixel from 24
+    x 37 to 276 x 669 at stride 4 and 8, K8's tiles 4 to 64 pixels),
+    each launched 320
     times: a round launches all 60 back to back behind a spin of the
     card, in a new order, and then holds every launch to its twin's
     outputs with tolerance 0; 200 rounds on one stream, 80 beside a
@@ -173,8 +180,8 @@ its device stages, for the breakdown of where the time goes.
 Phases 3, 4, 6, 7, 8, 9, 13 (a)-(c), 14 and 16 are the paths of the kernels:
 every kernel's launch count is set to 0 just before each and read just
 after, and a kernel its path must launch that it did not fails the run
-(K1-K3 on phase 3; K1, K2 and K4 on phase 4; K5a, K5b and K4 on phase
-6; K1-K4 on phase 7; K1, K2 and K3 or K4 on phases 8 and 13 (a); K1-K3
+(K1-K3 on phase 3; K1, K2 and K4 on phase 4's pan clip, K1 and K8 on
+its zoom clip; K5a, K5b and K4 on phase 6; K1-K4 on phase 7; K1, K2 and K3 or K4 on phases 8 and 13 (a); K1-K3
 on phases 9 and 13 (c); K1 and K2 on phase 13 (b); in each child of
 phase 14, K1-K3 on the static clip and K1, K2 and K4 on the pan clip;
 K1-K3 on phase 16 (a) and (b), whose launches the ``kernels`` line also
@@ -186,7 +193,9 @@ The second-to-last lines are the
 per-kernel JSON (launches summed over the path runs) and the card's
 name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.  Beside the contract's keys, each kernel's entry carries the
-``bytes`` behind ``bound_ms``, ``cold_ms``, its ptxas registers and
+``bytes`` (and K7's and K8's ``operations``: a compare and an add for
+each candidate of each sample, held to OPS_PER_S) behind ``bound_ms``,
+``cold_ms``, its ptxas registers and
 spill bytes, K1-K3's records at the bench batches
 (``at_bench_batches``) and the launches of phase 16 by part
 (``launches_in_tools``).  Exits non-zero without a CUDA card.
@@ -196,8 +205,8 @@ this script put at the root of another checkout (an older commit)
 times that checkout's kernels the same way, in the same call.
 ``--profile-phase-a`` runs phase 1, then phase A under ``utils/
 profiling.trace`` (``_phase_a`` on the 1080p x 120 bench batch,
-``_phase_a_auto`` on its first 15-frame chunk: the top five device
-ops), the codec program's fps on that batch three times and
+``_phase_a_auto`` and ``_tile_motion_best`` on its first 15-frame
+chunk: the top five device ops), the codec program's fps on that batch three times and
 ``tools.benchmark_stages --frames 120``, and prints no JSON; it too runs
 from the root of an older checkout (the port since its tools).
 ``--mesh-processes-only`` runs phases 1, 3-4 and 14 and prints no JSON:
@@ -229,8 +238,8 @@ CSRC_PHASE_A = "new_bloom_filter_repo_tpu_torch/ops/csrc/phase_a.cu"
 TPU_KERNELS = "new_bloom_filter_repo_tpu/ops/pallas/blocked.py"
 JAX_PIPELINE = "new_bloom_filter_repo_tpu/models/blocked_pipeline.py"
 # kernel wrapper name -> (short name, what it replaces: the pallas_call
-# of a TPU kernel, or for K6 and K7 the JAX function that XLA compiled;
-# the kernel's entry function; its source)
+# of a TPU kernel, or for K6-K8 the JAX function that XLA compiled; the
+# kernel's entry function; its source)
 KERNELS = {
     "blocked_encode_h": ("K1", f"{TPU_KERNELS}:660", "k1_encode", CSRC),
     "blocked_membership_h": ("K2", f"{TPU_KERNELS}:703", "k2_membership",
@@ -246,13 +255,22 @@ KERNELS = {
                      CSRC_PHASE_A),
     "motion_counts": ("K7", f"{JAX_PIPELINE}:406", "k7_motion_counts",
                       CSRC_PHASE_A),
+    "tile_motion_best": ("K8", f"{JAX_PIPELINE}:528", "k8_tile_motion_best",
+                         CSRC_PHASE_A),
 }
 # The phase-A kernels; K1-K5b are BLOCKED_KERNELS
-PHASE_A_KERNELS = ("phase_a_diff", "motion_counts")
+PHASE_A_KERNELS = ("phase_a_diff", "motion_counts", "tile_motion_best")
 BLOCKED_KERNELS = tuple(k for k in KERNELS if k not in PHASE_A_KERNELS)
+# The phase-A kernels every path that encodes with motion on launches
+# (K8 runs only where the residual trials reach the per-tile search)
+PATH_PHASE_A = ("phase_a_diff", "motion_counts")
 H, W = 1080, 1920
 CHUNK = 15
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
+# H100 SXM, 32-bit operations outside the tensor cores (the float32 rate
+# of NVIDIA's data sheet): the rate K7's and K8's compares and adds are
+# held to
+OPS_PER_S = 67e12
 FLUSH_BYTES = 128 << 20       # > 2x the 50 MB L2
 SPIN_CYCLES = 50_000_000      # ~25 ms of card time to queue launches behind
 T_START = time.perf_counter()
@@ -712,25 +730,42 @@ def phase_a_bytes(stacked, nb, shifts):
             + f * npad + 4 * f * nb + 4 * f * npad)
 
 
-def motion_bytes(stacked, stride):
-    """Bytes K7 must move on a stacked chunk: the F previous frames read
-    once (at a stride of at most 2R + 1 every pixel lies within R of a
-    sample row and column), the current frames' samples once, the (F,
-    225) counts written once."""
-    from new_bloom_filter_repo_tpu_torch.ops import phase_a as pa
-
+def motion_bytes(stacked, stride, out_bytes):
+    """Bytes K7 or K8 must move on a stacked chunk: the F previous frames
+    read once (at a stride of at most 2R + 1 every pixel lies within R
+    of a sample row and column), the current frames' samples once, the
+    ``out_bytes`` of output written once."""
     f, h, w = stacked.shape[0] - 1, stacked.shape[1], stacked.shape[2]
     c = stacked[0].numel() // (h * w)
     sh, sw = -(-h // stride), -(-w // stride)
-    return f * h * w * c + f * sh * sw * c + 4 * f * pa.CANDIDATES
+    return f * h * w * c + f * sh * sw * c + out_bytes
+
+
+def motion_ops(stacked, stride):
+    """Operations K7 or K8 must do on a stacked chunk: a compare and an
+    add for each of the 225 candidates of every sample."""
+    from new_bloom_filter_repo_tpu_torch.ops import phase_a as pa
+
+    f, h, w = stacked.shape[0] - 1, stacked.shape[1], stacked.shape[2]
+    return 2 * pa.CANDIDATES * f * -(-h // stride) * -(-w // stride)
+
+
+# K7's warm ms on each phase-2 mix in PR 13's closing run (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md), printed beside this run's
+K7_PR13_MS = {"1080p static chunk (bench clip)": 0.1463,
+              "1080p pan chunk": 0.1480, "planar U plane chunk": 0.0897,
+              "byte view uint16 x3 (10-bit) chunk": 0.5972,
+              "byte view float32 x3 (HDR, NaNs) chunk": 1.1744,
+              "byte view uint8 x4 (BGRA) chunk": 0.3951}
 
 
 def phase_a_cases(stacked, motion: bool):
-    """[(name, label, kernel call, twin call, bytes)] of K6 and K7 on one
-    stacked chunk: with ``motion``, K7 at the path's stride, then K6 on
-    the shifts the search picks from the twin's counts (the main path's
-    call) and K6 with no shifts; without, K6 with no shifts (the codec
-    program's call)."""
+    """[(name, label, kernel call, twin call, bytes, operations)] of
+    K6-K8 on one stacked chunk: with ``motion``, K7 at the path's stride
+    and K8 at the path's tile side (where the checkout has K8), then K6
+    on the shifts the search picks from the twin's counts (the main
+    path's call) and K6 with no shifts; without, K6 with no shifts (the
+    codec program's call)."""
     from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as bp
     from new_bloom_filter_repo_tpu_torch.ops import phase_a as pa
 
@@ -744,21 +779,35 @@ def phase_a_cases(stacked, motion: bool):
         counts = pa.motion_counts_ref(prev, curr, stride)
         shifts = torch_from(bp.choose_shifts(counts.cpu().numpy()),
                             stacked.device)
+        f = prev.shape[0]
         cases.append(("motion_counts", f"stride {stride}",
                       lambda: pa.motion_counts(prev, curr, stride),
                       lambda: pa.motion_counts_ref(prev, curr, stride),
-                      motion_bytes(stacked, stride)))
+                      motion_bytes(stacked, stride, 4 * f * pa.CANDIDATES),
+                      motion_ops(stacked, stride)))
+        if hasattr(pa, "tile_motion_best"):
+            tlog = bp.tile_log(h, w)
+            spt = max(1, (1 << tlog) // stride)
+            sh, sw = -(-h // stride), -(-w // stride)
+            tiles = -(-sh // spt) * -(-sw // spt)
+            cases.append(("tile_motion_best", f"tlog {tlog} stride {stride}",
+                          lambda: pa.tile_motion_best(prev, curr, tlog=tlog,
+                                                      stride=stride),
+                          lambda: pa.tile_motion_best_ref(prev, curr, tlog,
+                                                          stride),
+                          motion_bytes(stacked, stride, 12 * f * tiles),
+                          motion_ops(stacked, stride)))
         nz = int((shifts != 0).any(dim=1).sum())
         cases.append(("phase_a_diff", f"shifts from the search ({nz} of "
                       f"{shifts.shape[0]} frames shifted)",
                       lambda: pa.phase_a_diff(prev, curr, shifts, npad, nb),
                       lambda: pa.phase_a_diff_ref(prev, curr, shifts, npad,
                                                   nb),
-                      phase_a_bytes(stacked, nb, shifts)))
+                      phase_a_bytes(stacked, nb, shifts), 0))
     cases.append(("phase_a_diff", "no shifts",
                   lambda: pa.phase_a_diff(prev, curr, None, npad, nb),
                   lambda: pa.phase_a_diff_ref(prev, curr, None, npad, nb),
-                  phase_a_bytes(stacked, nb, None)))
+                  phase_a_bytes(stacked, nb, None), 0))
     return cases
 
 
@@ -769,13 +818,15 @@ def torch_from(arr, dev):
 
 
 def phase_phase_a(dev, mixes, reps: int = 10, twin_reps: int = 2):
-    """K6 and K7 against their twins on each (label, frames, motion,
-    main) mix: the frames stacked on the card as one chunk (base and
-    inter frames), tolerance 0, before their outputs feed K1; each
-    kernel call timed warm and cold, its twin warm, its bytes and bound.
-    Returns {wrapper name: record}: the worst max_abs_err over every
-    mix, the times and bound of the ``main`` mix's first call of each
-    kernel, and every call's record under ``at_mixes``."""
+    """K6-K8 against their twins on each (label, frames, motion, main)
+    mix: the frames stacked on the card as one chunk (base and inter
+    frames), tolerance 0, before their outputs feed K1; each kernel call
+    timed warm and cold, its twin warm, its bytes, operations and bound
+    (the larger of bytes over HBM_BYTES_PER_S and operations over
+    OPS_PER_S); K7 beside its PR 13 time.  Returns {wrapper name:
+    record}: the worst max_abs_err over every mix, the times and bound
+    of the ``main`` mix's first call of each kernel, and every call's
+    record under ``at_mixes``."""
     import torch
 
     out = {name: {"max_abs_err": 0, "at_mixes": {}}
@@ -785,13 +836,18 @@ def phase_phase_a(dev, mixes, reps: int = 10, twin_reps: int = 2):
         f, h, w = stacked.shape[0] - 1, stacked.shape[1], stacked.shape[2]
         log(f"  mix {label}: F={f} {h}x{w} {tuple(stacked.shape[3:])} "
             f"motion={'on' if motion else 'off'}")
-        for name, what, kern, twin, nbytes in phase_a_cases(stacked, motion):
+        for name, what, kern, twin, nbytes, ops in phase_a_cases(stacked,
+                                                                motion):
             got, want = kern(), twin()
             torch.cuda.synchronize()
             err = max_abs_err(got, want)
             del got, want
-            rec = {"max_abs_err": err, "bytes": nbytes,
-                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            by_ops = ops / OPS_PER_S * 1e3
+            rec = {"max_abs_err": err, "bytes": nbytes, "operations": ops,
+                   "bound_ms": max(by_bytes, by_ops),
+                   "bound_by": "bytes" if by_bytes >= by_ops
+                   else "operations",
                    "ms": time_ms(kern, reps),
                    "cold_ms": time_cold_ms(kern, reps),
                    "plain_ms": time_ms(twin, twin_reps)}
@@ -800,11 +856,16 @@ def phase_phase_a(dev, mixes, reps: int = 10, twin_reps: int = 2):
             if main and "ms" not in out[name]:
                 out[name].update({k: v for k, v in rec.items()
                                   if k != "max_abs_err"})
+            before = ""
+            if name == "motion_counts":
+                before = (f"; PR 13: {K7_PR13_MS[label]:.4f} ms"
+                          if label in K7_PR13_MS else "; PR 13: not measured")
             log(f"    {KERNELS[name][0]} {name} ({what}): max_abs_err="
                 f"{err}; kernel {rec['ms']:.4f} ms, after an L2 flush "
                 f"{rec['cold_ms']:.4f} ms, plain twin {rec['plain_ms']:.4f}"
-                f" ms; {nbytes} bytes, bound {rec['bound_ms']:.4f} ms "
-                f"({rec['bound_ms'] / rec['ms']:.3f} of it)")
+                f" ms; {nbytes} bytes, {ops} operations, bound "
+                f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+                f"({rec['bound_ms'] / rec['ms']:.3f} of it){before}")
             if err != 0:
                 raise AssertionError(f"{name} disagrees with its twin on "
                                      f"{label} ({what}): max_abs_err={err}")
@@ -839,9 +900,10 @@ def trace_top_ops(trace_dir, reps: int, top: int = 5):
 def phase_a_profile(dev, card, reps: int = 5):
     """``--profile-phase-a``: phase A as the tools and the main path call
     it, under ``utils/profiling.trace`` (torch.profiler): ``_phase_a`` on
-    tools/bench.py's 1080p batch (F = 120, C = 3) and ``_phase_a_auto``
-    on its first 15-frame chunk, ``reps`` calls each after a warm-up;
-    prints the device ms a call and the top five device ops.  Then the
+    tools/bench.py's 1080p batch (F = 120, C = 3), ``_phase_a_auto`` and
+    the residual trials' ``_tile_motion_best`` on its first 15-frame
+    chunk, ``reps`` calls each after a warm-up; prints the device ms a
+    call and the top five device ops.  Then the
     torch-op programs next in line for a kernel at that chunk (the
     packed masks with and without motion, the per-tile motion summary,
     the decoder's roll chain), timed with CUDA events; the codec
@@ -867,7 +929,9 @@ def phase_a_profile(dev, card, reps: int = 5):
         ("_phase_a, F = 120", lambda: bp._phase_a(stacked, npad=npad,
                                                   nb=nb)),
         ("_phase_a_auto, F = 15", lambda: bp._phase_a_auto(
-            stacked[:CHUNK + 1], stride=stride, npad=npad, nb=nb))]
+            stacked[:CHUNK + 1], stride=stride, npad=npad, nb=nb)),
+        ("_tile_motion_best, F = 15", lambda: bp._tile_motion_best(
+            stacked[:CHUNK + 1], tlog=bp.tile_log(h, w), stride=stride))]
     for label, fn in runs:
         fn()
         torch.cuda.synchronize()
@@ -1088,8 +1152,14 @@ def path_launches(label: str, needed):
 
 def phase_main_path(dev, bench_frames, pan_frames, tmp, card):
     """Phases 3-4; the launch counts are read per clip (the launches per
-    main-path clip of PERF.md's kernel table) and summed."""
+    main-path clip of PERF.md's kernel table) and summed.  Phase 4 ends
+    with 8 frames of the ``zoom`` class at 1080p, the content the
+    per-tile search (K8) serves: its residual trials must launch K8, and
+    its ``.bfvc`` must equal the CPU port's byte for byte."""
+    from new_bloom_filter_repo_tpu_torch.models.video import (
+        ImprovedVideoCompressor)
     from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
+    from new_bloom_filter_repo_tpu_torch.utils import synthetic
 
     bk.reset_launches()
     round_trip("phase 3 static 1080p (bench clip)", bench_frames, dev,
@@ -1097,17 +1167,39 @@ def phase_main_path(dev, bench_frames, pan_frames, tmp, card):
     static = path_launches("static clip", ["blocked_encode_h",
                                            "blocked_membership_h",
                                            "blocked_expand_chain",
-                                           *PHASE_A_KERNELS])
+                                           *PATH_PHASE_A])
     bk.reset_launches()
     pan_hist, _ = round_trip("phase 4 pan 1080p (synthetic, seed 0)",
                              pan_frames, dev, os.path.join(tmp, "pan.bfvc"),
                              card)
     pan = path_launches("pan clip", ["blocked_encode_h",
                                      "blocked_membership_h",
-                                     "blocked_expand", *PHASE_A_KERNELS])
+                                     "blocked_expand", *PATH_PHASE_A])
     if not any(k.startswith("6>") for k in pan_hist):
         raise AssertionError("pan clip produced no type-6 motion record")
-    return {n: static[n] + pan[n] for n in static}
+    h, w = np.asarray(pan_frames[0]).shape[:2]
+    zoom_frames = synthetic.generate_frames(8, w, h, seed=0,
+                                            **synthetic.SUITE["zoom"])
+    path = os.path.join(tmp, "zoom.bfvc")
+    bk.reset_launches()
+    round_trip(f"phase 4 zoom {h}p (synthetic, seed 0)", zoom_frames, dev,
+               path, card)
+    # its records are keyframes and zoom predictions: no Bloom record
+    # for K2 to decode
+    zoom = path_launches("zoom clip", ["blocked_encode_h", *PATH_PHASE_A,
+                                       "tile_motion_best"])
+    t0 = time.perf_counter()
+    cpu_path = os.path.join(tmp, "zoom_cpu.bfvc")
+    ImprovedVideoCompressor(device="cpu").compress_video(zoom_frames,
+                                                         cpu_path)
+    if not same_file(path, cpu_path):
+        raise AssertionError("zoom clip: the card's .bfvc differs from the "
+                             "CPU port's")
+    log(f"  zoom clip: the card's .bfvc equals the CPU port's byte for byte "
+        f"(CPU encode {time.perf_counter() - t0:.2f} s); K8 launches: "
+        f"static {static['tile_motion_best']}, pan "
+        f"{pan['tile_motion_best']}, zoom {zoom['tile_motion_best']}")
+    return {n: static[n] + pan[n] + zoom[n] for n in static}
 
 
 def phase_parity(dev, tmp):
@@ -1241,7 +1333,7 @@ def phase_devices(dev, bench, pan, tmp, card):
     return path_launches("devices=", ["blocked_encode_h",
                                       "blocked_membership_h",
                                       "blocked_expand_chain",
-                                      "blocked_expand", *PHASE_A_KERNELS])
+                                      "blocked_expand", *PATH_PHASE_A])
 
 
 # ---------------------------------------------------------------------------
@@ -1384,7 +1476,7 @@ def phase_planar(dev, pan, tmp, card):
     log(f"    planes exact, U/V {dec[0].yuv_info['u_plane'].shape}")
     launches = path_launches("planar", ["blocked_encode_h",
                                         "blocked_membership_h",
-                                        *PHASE_A_KERNELS])
+                                        *PATH_PHASE_A])
     if launches["blocked_expand_chain"] + launches["blocked_expand"] == 0:
         raise AssertionError("planar decode launched neither K3 nor K4")
     return launches
@@ -1418,7 +1510,7 @@ def phase_byte_view(dev, clips, tmp, card):
     return path_launches("byte view", ["blocked_encode_h",
                                        "blocked_membership_h",
                                        "blocked_expand_chain",
-                                       *PHASE_A_KERNELS])
+                                       *PATH_PHASE_A])
 
 
 def bfv2_chunk(frames, dev):
@@ -1690,7 +1782,8 @@ def time_bloom_ops(dev, arr, frame, card):
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: stress of the shared-memory ordering of K1, K5a, K3 and K4
+# Phase 12: stress of the shared-memory ordering of K1, K5a, K3, K4, K7
+# and K8
 # ---------------------------------------------------------------------------
 
 # Shapes of the stress pool: every pair (NB, F).  NB from 64 to 513
@@ -1702,7 +1795,8 @@ STRESS_VH = (1, 4, 16)        # 32 to 512 value slots: fewer than changes
 STRESS_DENS = (1.0, 0.0, 0.5, 0.03, 0.3)
 STRESS_SPIN = 10_000_000      # ~5 ms of card time to queue a batch behind
 STRESS_KERNELS = ("blocked_encode_h", "blocked_encode",
-                  "blocked_expand_chain", "blocked_expand", "motion_counts")
+                  "blocked_expand_chain", "blocked_expand", "motion_counts",
+                  "tile_motion_best")
 
 
 def stress_pool(dev, seed, nbs=STRESS_NB, fs=STRESS_F):
@@ -1716,10 +1810,11 @@ def stress_pool(dev, seed, nbs=STRESS_NB, fs=STRESS_F):
     slots: fewer than the changes).  K3 and K4 take
     :func:`expand_edge_inputs`: pass densities from every item to none by
     frame, alternating flagged frames on two mixes of three, the same
-    vh.  K7, which stages previous-frame rows in shared memory, takes F
-    frame pairs of 1-3 bytes a pixel from 24 x 37 up to 276 x 669, each
-    frame the last rolled with a fifth of it redrawn, at stride 4 or 8.
-    The twins run once per mix, here."""
+    vh.  K7 and K8, which land previous-frame rows in shared memory three
+    sample rows ahead and pack them into a ring of rows, take F frame
+    pairs of 1-3 bytes a pixel from 24 x 37 up to 276 x 669, each frame
+    the last rolled with a fifth of it redrawn, at stride 4 or 8, K8
+    with tiles of 4 to 64 pixels.  The twins run once per mix, here."""
     from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as bp
     from new_bloom_filter_repo_tpu_torch.ops import blocked as bk
     from new_bloom_filter_repo_tpu_torch.ops import phase_a as pa
@@ -1751,6 +1846,7 @@ def stress_pool(dev, seed, nbs=STRESS_NB, fs=STRESS_F):
         pairs = motion_pairs(f, 24 + 28 * (i % 10), 37 + 79 * (i % 9),
                              1 + i % 3, dev, seed=seed + i)
         stride = 4 if i % 2 else 8
+        tlog = 2 + i % 5
         for name, kern, twin in (
                 ("blocked_encode_h",
                  lambda e=enc, k=kw: bk.blocked_encode_h(*e, **k),
@@ -1767,7 +1863,11 @@ def stress_pool(dev, seed, nbs=STRESS_NB, fs=STRESS_F):
                  bk.blocked_expand_ref(*exp, vh=vh)),
                 ("motion_counts",
                  lambda p=pairs, s_=stride: pa.motion_counts(*p, s_),
-                 pa.motion_counts_ref(*pairs, stride))):
+                 pa.motion_counts_ref(*pairs, stride)),
+                ("tile_motion_best",
+                 lambda p=pairs, s_=stride, tl=tlog: pa.tile_motion_best(
+                     *p, tlog=tl, stride=s_),
+                 pa.tile_motion_best_ref(*pairs, tlog, stride))):
             want = twin if isinstance(twin, tuple) else (twin,)
             pool[name].append((label, kern, want))
     return pool
@@ -1847,8 +1947,8 @@ class StressSide:
 
 def phase_stress(dev, rounds=(("quiet", 200), ("busy", 80), ("split", 40)),
                  seed=1000, nbs=STRESS_NB, fs=STRESS_F):
-    """Phase 12.  K1, K5a, K3, K4 and K7 launched many thousands of times
-    over the stress pool, every launch held to its plain twin with
+    """Phase 12.  K1, K5a, K3, K4, K7 and K8 launched many thousands of
+    times over the stress pool, every launch held to its plain twin with
     tolerance 0.  Each round launches every mix of one kernel, in a new
     random order, back to back behind a spin of the card, and compares
     afterwards.  A launch that differs raises with the mix's seed and
@@ -2000,7 +2100,7 @@ def phase_files(dev, bench, pan, f32_frames, tmp, card):
             len(clip), card, ["compress"])
     launches = path_launches("Y4M files", ["blocked_encode_h",
                                            "blocked_membership_h",
-                                           *PHASE_A_KERNELS])
+                                           *PATH_PHASE_A])
     if launches["blocked_expand_chain"] + launches["blocked_expand"] == 0:
         raise AssertionError("Y4M decode launched neither K3 nor K4")
     runs.append(launches)
@@ -2017,7 +2117,7 @@ def phase_files(dev, bench, pan, f32_frames, tmp, card):
                        "--format", fmt])
     runs.append(path_launches("raw YUV files", ["blocked_encode_h",
                                                 "blocked_membership_h",
-                                                *PHASE_A_KERNELS]))
+                                                *PATH_PHASE_A]))
 
     # (c) a directory of float32 EXR frames (zip) through the byte view
     bk.reset_launches()
@@ -2042,7 +2142,7 @@ def phase_files(dev, bench, pan, f32_frames, tmp, card):
     runs.append(path_launches("EXR frames", ["blocked_encode_h",
                                              "blocked_membership_h",
                                              "blocked_expand_chain",
-                                             *PHASE_A_KERNELS]))
+                                             *PATH_PHASE_A]))
     fix = os.path.join(REPO, "tests", "fixtures")
     piz = exr.read_exr(os.path.join(fix, "golden_piz.exr"))
     if not np.array_equal(piz.view(np.uint16),
@@ -2102,9 +2202,9 @@ def phase_files(dev, bench, pan, f32_frames, tmp, card):
 # ---------------------------------------------------------------------------
 
 MESH_CLIPS = {"static": ["blocked_encode_h", "blocked_membership_h",
-                         "blocked_expand_chain", *PHASE_A_KERNELS],
+                         "blocked_expand_chain", *PATH_PHASE_A],
               "pan": ["blocked_encode_h", "blocked_membership_h",
-                      "blocked_expand", *PHASE_A_KERNELS]}
+                      "blocked_expand", *PATH_PHASE_A]}
 CHILD_LIMIT_S = 300
 
 
@@ -2650,7 +2750,7 @@ def phase_tools(dev, tmp, card, suite_frames=SUITE_FRAMES):
         f"({card}); its JSON line is the line above")
     parts["a"] = path_launches("(a) tools.bench", [
         "blocked_encode_h", "blocked_membership_h", "blocked_expand_chain",
-        *PHASE_A_KERNELS])
+        *PATH_PHASE_A])
     if out.get("value_4k") is None:
         raise AssertionError(f"(a) value_4k is None: {out.get('note_4k')}")
     bad = [k for k in ("lossless", "production_measured", "lossless_4k",
@@ -2672,7 +2772,7 @@ def phase_tools(dev, tmp, card, suite_frames=SUITE_FRAMES):
     log(f"  (b) ran in {time.perf_counter() - t0:.2f} s ({card})")
     parts["b"] = path_launches("(b) tools.benchmark_stages", [
         "blocked_encode_h", "blocked_membership_h", "blocked_expand_chain",
-        *PHASE_A_KERNELS])
+        *PATH_PHASE_A])
 
     t0 = time.perf_counter()
     vdir = os.path.join(tmp, "suite")
@@ -2740,7 +2840,7 @@ def phase_tools(dev, tmp, card, suite_frames=SUITE_FRAMES):
         for n, fn in originals.items():
             setattr(tbc, n, fn)
     parts["c"] = path_launches("(c) tools.benchmark_compression",
-                               list(PHASE_A_KERNELS))
+                               list(PATH_PHASE_A))
     log(f"  (c) K4 launches by clip, codec and frames: {k4 or 'none'}; "
         f"(c) took {time.perf_counter() - t0:.2f} s")
     return parts, k4
@@ -2826,12 +2926,14 @@ def main() -> int:
                    tools_bench.FRAMES_4K, 2160, 3840, seed=1))]
     log(f"  the bench batches of tools/bench.py generated on the host in "
         f"{time.perf_counter() - t0:.2f} s")
-    log("  phase A (K6, K7) first: its outputs are K1's inputs below")
+    log("  phase A (K6-K8) first: its outputs are K1's inputs below")
     mixes = [("1080p static chunk (bench clip)", bench[:CHUNK + 1], True,
               True),
              ("1080p pan chunk", pan[:CHUNK + 1], True, False)]
     mixes += [(label, clip[:CHUNK + 1], True, False)
               for label, clip in path_chunks]
+    mixes.append(("4K chunk (the 4K bench batch's first frames)",
+                  batches[1][1][:CHUNK + 1], True, False))
     mixes += [(label, frames, False, False) for label, frames in batches]
     stats = phase_phase_a(dev, mixes)
     stats.update(phase_kernels(dev, bench, path_chunks))
@@ -2860,8 +2962,8 @@ def main() -> int:
         phase_bfv2(dev, bench[:16], tmp, smi)
         log(f"phase 11 near-lossless, keyframe mode, binary codecs ({smi}):")
         phase_near_lossless(dev, bench[:16], tmp, smi)
-        log(f"phase 12 stress of K1, K5a, K3, K4, K7 against their twins "
-            f"({smi}):")
+        log(f"phase 12 stress of K1, K5a, K3, K4, K7, K8 against their "
+            f"twins ({smi}):")
         phase_stress(dev)
         log(f"phase 13 files, the CLI, the harness and the tools ({smi}):")
         runs.append(phase_files(dev, bench, pan, byte_clips[1][1][:4], tmp,
@@ -2885,7 +2987,8 @@ def main() -> int:
             "replaces": replaces, "launches": launches[n],
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
-            "bound_by": "bytes", "library_ms": None, "bytes": st["bytes"],
+            "bound_by": st.get("bound_by", "bytes"), "library_ms": None,
+            "bytes": st["bytes"], "operations": st.get("operations"),
             "cold_ms": st.get("cold_ms"), "ptxas_registers": regs,
             "ptxas_spill_bytes": spills,
             "at_bench_batches": {label: recs[n] for label, recs

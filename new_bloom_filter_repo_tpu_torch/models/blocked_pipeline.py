@@ -5,8 +5,8 @@ chunk of up to ``_CHUNK`` inter frames: phase A (exact diff masks,
 per-block change counts, 24-bit packed pixels, and the global-motion
 search) runs on the encoder's device as kernels K7 (the search's counts)
 and K6 (the diff; ``ops/phase_a.py``), with the shift gate between them
-as torch ops; the host runs the
-reference float64 parameter math (p, k, l, then m = round(l / nb)); one
+as torch ops (the residual trials' per-tile search is K8); the host runs
+the reference float64 parameter math (p, k, l, then m = round(l / nb)); one
 kernel launch Bloom-encodes the chunk (``ops/blocked.py`` K1); the host
 assembles records.  Decode mirrors it: parse, membership kernel (K2),
 host witness/value slicing, then the fused expansion + chain kernel
@@ -84,7 +84,8 @@ FILTER_GATE = 0.25    # try filtered-residual (type 14) trials only
 
 # ---------------------------------------------------------------------------
 # Phase A: diff masks, per-block counts, packed pixels (ops/phase_a.py:
-# K6, and K7 for the motion search, on a CUDA device; their twins on a CPU)
+# K6, K7 and K8 for the motion searches, on a CUDA device; their twins on
+# a CPU)
 # ---------------------------------------------------------------------------
 
 # The JAX module's names for two of phase A's helpers
@@ -117,18 +118,6 @@ MOTION_STRIDE = pa.MOTION_STRIDE   # subsampled count grid (n/16 samples)
 MOTION_ACCEPT = 0.7    # accept the best shift iff count <= 0.7 * count(0,0)
 MOTION_ACCEPT_10 = 7   # ... which the gates test as cb * 10 <= c0 * 7
 MOTION_MIN_C0 = 64     # ... and the zero-shift count is worth beating
-
-
-def _first_argmin(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Index of the FIRST minimum along ``dim`` (explicit, so ties break
-    the same way on every device: the reference takes the first argmin
-    in (dy, dx) order)."""
-    size = x.shape[dim]
-    shape = [1] * x.ndim
-    shape[dim] = size
-    idx = torch.arange(size, device=x.device).view(shape)
-    mn = x.min(dim=dim, keepdim=True).values
-    return torch.where(x == mn, idx, size).min(dim=dim).values
 
 
 def _motion_counts_pair(prev_u8, curr_u8, stride: int = MOTION_STRIDE):
@@ -198,7 +187,7 @@ def _phase_a_auto_pair(prev, curr, *, stride: int, npad: int, nb: int):
     counts225 = _motion_counts_pair(prev, curr, stride=stride)
     side = 2 * MOTION_RADIUS + 1
     zero_idx = MOTION_RADIUS * side + MOTION_RADIUS
-    best = _first_argmin(counts225, 1)
+    best = pa.first_argmin(counts225, 1)
     # int32 margin products: counts are subsampled-grid mismatch counts
     # (< n/stride^2), so cb * 10 stays far below 2^31 at any geometry
     c0 = counts225[:, zero_idx]
@@ -226,33 +215,16 @@ TILE_MIN_C0 = 4    # ... and the tile's zero-shift count is worth beating
 
 
 def _tile_motion_best(stacked, *, tlog: int, stride: int = MOTION_STRIDE):
-    """Per-TILE best-shift summary over the global search window.
+    """Per-TILE best-shift summary over the global search window (K8).
 
     stacked: (F+1, h, w[, c]) uint8.  Returns (F, ty, tx, 3) i32 rows
     (best_candidate_idx, best_count, zero_shift_count) per square tile
     of side 2**tlog, from the same subsampled mismatch counts as the
     global search — the device half of the type-10 per-tile motion
     trial.  Reduced on the device, so only (F, ty, tx, 3) is pulled."""
-    b = stacked.shape[0] - 1
-    h, w = stacked.shape[1], stacked.shape[2]
-    sh, sw = -(-h // stride), -(-w // stride)
-    spt = max(1, (1 << tlog) // stride)  # samples per tile side
-    ty, tx = -(-sh // spt), -(-sw // spt)
-    pad_y, pad_x = ty * spt - sh, tx * spt - sw
-    rows = []
-    for ne in pa.shift_mismatch(stacked[:-1], stacked[1:], stride):
-        ne = ne.permute(0, 2, 1, 3).to(torch.int32)     # (B, D, sh, sw)
-        ne = torch.nn.functional.pad(ne, (0, pad_x, 0, pad_y))
-        d = ne.shape[1]
-        rows.append(ne.reshape(b, d, ty, spt, tx, spt).sum(dim=(3, 5)))
-    counts = torch.stack(rows, dim=1).reshape(b, -1, ty, tx)
-    counts = counts.permute(0, 2, 3, 1)                 # (B, ty, tx, C)
-    side = 2 * MOTION_RADIUS + 1
-    zero_idx = MOTION_RADIUS * side + MOTION_RADIUS
-    best = _first_argmin(counts, -1)
-    bc = counts.min(dim=-1).values
-    c0 = counts[..., zero_idx]
-    return torch.stack([best, bc, c0], dim=-1).to(torch.int32)
+    return pa.tile_motion_best(stacked[:-1].contiguous(),
+                               stacked[1:].contiguous(), tlog=tlog,
+                               stride=stride)
 
 
 def choose_tile_shifts(summary: np.ndarray) -> np.ndarray:

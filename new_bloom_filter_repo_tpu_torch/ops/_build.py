@@ -41,7 +41,7 @@ GMAX = 16
 # would set the kernels' loop count.  The entry points refuse more.
 MAX_K_LANES = 32
 # The global-motion search window is [-MOTION_RADIUS, MOTION_RADIUS]^2
-# (K7 counts one candidate a thread, so (2R + 1)^2 <= 256).
+# (K7 and K8 run a warp a dy, so 2R + 1 warps a CTA).
 MOTION_RADIUS = 7
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -66,6 +66,7 @@ _SIGNATURES = {
     "nbf_k5b_membership": [_P, _I] + [_P] * 8 + [_I] * 5 + [_P],
     "nbf_k6_phase_a_diff": [_P] * 6 + [_I] * 5 + [_P],
     "nbf_k7_motion_counts": [_P] * 3 + [_I] * 7 + [_P],
+    "nbf_k8_tile_motion_best": [_P] * 3 + [_I] * 8 + [_P],
 }
 
 

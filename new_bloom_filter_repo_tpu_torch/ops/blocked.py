@@ -21,7 +21,7 @@ its tensors lie:
 
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``<wrapper>.launches``; :func:`reset_launches` and :func:`launches` read
-and clear them all, phase A's K6 and K7 (``ops/phase_a.py``) included.
+and clear them all, phase A's K6-K8 (``ops/phase_a.py``) included.
 
 Dtype conventions: the u32 quantities of the JAX interface (the
 activation-hash halves and the per-frame thresholds ``thi``/``tlo``)
@@ -579,18 +579,18 @@ for _fn in _WRAPPERS:
 
 
 def _all_wrappers():
-    """K1-K5b's wrappers, then phase A's (K6, K7; ``ops/phase_a.py``)."""
+    """K1-K5b's wrappers, then phase A's (K6-K8; ``ops/phase_a.py``)."""
     from new_bloom_filter_repo_tpu_torch.ops import phase_a
 
     return _WRAPPERS + phase_a._WRAPPERS
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0 (K1-K7)."""
+    """Set every kernel wrapper's launch count to 0 (K1-K8)."""
     for fn in _all_wrappers():
         fn.launches = 0
 
 
 def launches() -> Dict[str, int]:
-    """Launch count of each kernel wrapper (K1-K7) since the last reset."""
+    """Launch count of each kernel wrapper (K1-K8) since the last reset."""
     return {fn.__name__: fn.launches for fn in _all_wrappers()}

@@ -1,4 +1,4 @@
-"""K1-K7 and the port's main and mesh paths on an NVIDIA card.
+"""K1-K8 and the port's main and mesh paths on an NVIDIA card.
 
 Marked ``cuda``: each test skips without a card.  On the card, run
 
@@ -101,7 +101,8 @@ def test_kernels_equal_twins(dev, flagged):
                              "blocked_encode": 0,
                              "blocked_membership": 0,
                              "phase_a_diff": 0,
-                             "motion_counts": 0}
+                             "motion_counts": 0,
+                             "tile_motion_best": 0}
 
 
 @pytest.mark.parametrize("flagged", [False, True])
@@ -236,6 +237,58 @@ def test_phase_a_kernels_equal_twins(dev, shape):
     assert launched["phase_a_diff"] == 4 and launched["motion_counts"] == 2
 
 
+# K7 and K8 (h, w, C, F): the shapes above, 1080p, and a width whose
+# rows start off 16-byte boundaries (1917 x 3 bytes)
+SEARCH_SHAPES = [(24, 37, 3, 9), (96, 130, 1, 5), (64, 48, 2, 3),
+                 (1080, 1920, 3, 2), (45, 1917, 3, 2)]
+
+
+def unaligned(stacked):
+    """A copy of ``stacked`` whose first byte lies 1 past a 16-byte
+    boundary, so the kernels copy the granules at both of its ends
+    byte by byte."""
+    buf = torch.empty(stacked.numel() + 16, dtype=torch.uint8,
+                      device=stacked.device)
+    start = (1 - buf.data_ptr()) % 16
+    view = buf[start: start + stacked.numel()].view(stacked.shape)
+    view.copy_(stacked)
+    assert view.data_ptr() % 16 == 1
+    return view
+
+
+@pytest.mark.parametrize("stride", [1, 4, 8])
+@pytest.mark.parametrize("shape", SEARCH_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_motion_search_kernels_equal_twins(dev, shape, stride):
+    h, w, c, f = shape
+    stacked, _ = phase_a_chunk(dev, h, w, c, f, seed=h + stride)
+    bk.reset_launches()
+    for chunk in (stacked, unaligned(stacked)):
+        prev, curr = chunk[:-1], chunk[1:]
+        same(pa.motion_counts(prev, curr, stride),
+             pa.motion_counts_ref(prev, curr, stride))
+        for tlog in (2, 4, 6):
+            same(pa.tile_motion_best(prev, curr, tlog=tlog, stride=stride),
+                 pa.tile_motion_best_ref(prev, curr, tlog, stride))
+    torch.cuda.synchronize()
+    launched = bk.launches()
+    assert launched["motion_counts"] == 2
+    assert launched["tile_motion_best"] == 6
+
+
+def test_tile_motion_best_on_the_main_path_equals_cpu(dev):
+    """The encoder's per-tile search at 1080p through K8 equals the CPU
+    port's."""
+    frames = generate_frames(3, 1920, 1080, seed=0, **SUITE["zoom"])
+    stacked = torch.from_numpy(np.stack(frames))
+    kw = {"tlog": bp.tile_log(1080, 1920), "stride": bp.motion_stride(
+        1080, 1920)}
+    bk.reset_launches()
+    same(bp._tile_motion_best(stacked.to(dev), **kw),
+         bp._tile_motion_best(stacked, **kw).to(dev))
+    assert bk.launches()["tile_motion_best"] == 1
+
+
 def test_phase_a_wrappers_raise_instead_of_falling_back(dev):
     stacked, shifts = phase_a_chunk(dev, 24, 37, 3, 2)
     prev, curr = stacked[:-1], stacked[1:]
@@ -246,6 +299,12 @@ def test_phase_a_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="prev must be contiguous"):
         pa.motion_counts(prev.transpose(1, 2).contiguous().transpose(1, 2),
                          curr, 4)
+    with pytest.raises(TypeError, match="curr must be torch.uint8"):
+        pa.tile_motion_best(prev, curr.to(torch.int32), tlog=4, stride=4)
+    with pytest.raises(ValueError, match="prev is on cpu"):
+        pa.tile_motion_best(prev.cpu(), curr, tlog=4, stride=4)
+    with pytest.raises(ValueError, match="K8 takes no tile"):
+        pa.tile_motion_best(prev, curr, tlog=14, stride=1)
     with pytest.raises(ValueError, match="prev is on cpu"):
         pa.phase_a_diff(prev.cpu(), curr, None, 8192, 8)
     with pytest.raises(ValueError, match="shifts is on cpu"):
@@ -257,7 +316,10 @@ def test_phase_a_wrappers_raise_instead_of_falling_back(dev):
     masks, counts, vals = pa.phase_a_diff(empty, empty, None, 8192, 8)
     assert masks.shape == (0, 8, IPB) and vals.shape == (0, 8, IPB)
     assert pa.motion_counts(empty, empty, 4).shape == (0, pa.CANDIDATES)
+    assert pa.tile_motion_best(empty, empty, tlog=4,
+                               stride=4).shape == (0, 2, 3, 3)
     assert bk.launches()["phase_a_diff"] == 0
+    assert bk.launches()["tile_motion_best"] == 0
 
 
 def test_wrapper_raises_instead_of_falling_back(dev):

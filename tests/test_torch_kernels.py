@@ -281,7 +281,8 @@ def test_cpu_calls_do_not_count_launches():
                               "blocked_encode": 0,
                               "blocked_membership": 0,
                               "phase_a_diff": 0,
-                              "motion_counts": 0}
+                              "motion_counts": 0,
+                              "tile_motion_best": 0}
 
 
 # ---------------------------------------------------------------------------
