@@ -43,7 +43,6 @@ from __future__ import annotations
 
 import math
 import os
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -64,7 +63,7 @@ from new_bloom_filter_repo_tpu_torch.ops.hashtables import (
 )
 from new_bloom_filter_repo_tpu_torch.parallel import blocked_batch as bb
 from new_bloom_filter_repo_tpu_torch.parallel.mesh import home_device
-from new_bloom_filter_repo_tpu_torch.utils import native
+from new_bloom_filter_repo_tpu_torch.utils import native, profiling
 
 __all__ = ["BlockedEncoder", "BlockedDecoder", "SUPER", "blocked_tables",
            "npad_of"]
@@ -769,11 +768,12 @@ class BlockedEncoder:
         """Host-stack + upload of a chunk.  On a CUDA device the copy
         leaves from pinned memory without blocking, so a caller that
         stacks one chunk ahead overlaps it with the previous chunk."""
-        host = torch.from_numpy(np.stack([base] + list(frames)))
-        dev = torch.device(device)
-        if dev.type == "cuda":
-            return host.pin_memory().to(dev, non_blocking=True)
-        return host.to(dev)
+        with profiling.span("nbf.upload"):
+            host = torch.from_numpy(np.stack([base] + list(frames)))
+            dev = torch.device(device)
+            if dev.type == "cuda":
+                return host.pin_memory().to(dev, non_blocking=True)
+            return host.to(dev)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -816,105 +816,99 @@ class BlockedEncoder:
         trials (which mix neighbouring samples) are off for them.
         ``stage_times`` (optional dict) accumulates wall seconds per
         stage."""
-        _t0 = time.time()
-        f = len(frames)
-        # Global frame offset of this chunk within the stream (type-18
-        # zoom tracking), claimed at BEGIN time in chunk order.
-        g0 = self._zoom_gframe
-        self._zoom_gframe += f
-        shape = base.shape
-        h, w = shape[:2]
-        channels = 1 if base.ndim == 2 else shape[2]
-        n = h * w
-        tab = blocked_tables(n, self.device)
-        nb, npad = tab["nb"], tab["npad"]
+        with profiling.stages(stage_times) as stage:
+            stage.next("nbf.enc_device_phase_a")
+            f = len(frames)
+            # Global frame offset of this chunk within the stream (type-18
+            # zoom tracking), claimed at BEGIN time in chunk order.
+            g0 = self._zoom_gframe
+            self._zoom_gframe += f
+            shape = base.shape
+            h, w = shape[:2]
+            channels = 1 if base.ndim == 2 else shape[2]
+            n = h * w
+            tab = blocked_tables(n, self.device)
+            nb, npad = tab["nb"], tab["npad"]
 
-        if stacked is None:
-            stacked = self.stack_chunk(base, frames, self.device)
+            if stacked is None:
+                stacked = self.stack_chunk(base, frames, self.device)
 
-        # Phase A.  With motion enabled the search, the shift decision,
-        # and the rolled diff run as one device pass and the small
-        # outputs come back in one pull; the packed masks stay lazy
-        # (pass-through/sparse records only).
-        shifts = np.zeros((f, 2), np.int32)
-        best_shifts = np.zeros((f, 2), np.int32)
-        shifts_d = None
-        stride = motion_stride(h, w)
-        tlog = tile_log(h, w)
-        if (self.motion and h >= 4 * MOTION_RADIUS
-                and w >= 4 * MOTION_RADIUS):
-            if self.dispatch is not None:
-                masks, counts_d, vals, shifts_d, best_d = \
-                    self.dispatch.phase_a_auto(stacked, stride, npad=npad,
-                                               nb=nb)
+            # Phase A.  With motion enabled the search, the shift decision,
+            # and the rolled diff run as one device pass and the small
+            # outputs come back in one pull; the packed masks stay lazy
+            # (pass-through/sparse records only).
+            shifts = np.zeros((f, 2), np.int32)
+            best_shifts = np.zeros((f, 2), np.int32)
+            shifts_d = None
+            stride = motion_stride(h, w)
+            tlog = tile_log(h, w)
+            if (self.motion and h >= 4 * MOTION_RADIUS
+                    and w >= 4 * MOTION_RADIUS):
+                if self.dispatch is not None:
+                    masks, counts_d, vals, shifts_d, best_d = \
+                        self.dispatch.phase_a_auto(stacked, stride, npad=npad,
+                                                   nb=nb)
+                else:
+                    masks, counts_d, vals, shifts_d, best_d = _phase_a_auto(
+                        stacked, stride=stride, npad=npad, nb=nb)
+                counts, shifts, best_shifts = (
+                    t.cpu().numpy() for t in (counts_d, shifts_d, best_d))
             else:
-                masks, counts_d, vals, shifts_d, best_d = _phase_a_auto(
-                    stacked, stride=stride, npad=npad, nb=nb)
-            counts, shifts, best_shifts = (
-                t.cpu().numpy() for t in (counts_d, shifts_d, best_d))
-        else:
+                if self.dispatch is not None:
+                    masks, counts_d, vals = self.dispatch.phase_a(
+                        stacked, npad=npad, nb=nb)
+                else:
+                    masks, counts_d, vals = _phase_a(stacked, npad=npad, nb=nb)
+                counts = counts_d.cpu().numpy()
+            any_motion = bool(shifts.any())
+            packed_cache: dict = {}
+
+            def packed_row(j):
+                if "packed" not in packed_cache:
+                    with profiling.span("nbf.pull_lazy"):
+                        packed = (_phase_a_packed_motion(stacked, shifts_d,
+                                                         npad=npad)
+                                  if any_motion
+                                  else _phase_a_packed(stacked, npad=npad))
+                        packed_cache["packed"] = packed.cpu().numpy()
+                return packed_cache["packed"][j]
+
+            stage.next("nbf.enc_param_math")
+            kinds, ks, m_arr, fk_arr, thi, tlo, geom = chunk_params(counts, n,
+                                                                     nb)
+            scalars = frame_scalars(self.device, m_arr, thi, tlo, fk_arr)
             if self.dispatch is not None:
-                masks, counts_d, vals = self.dispatch.phase_a(
-                    stacked, npad=npad, nb=nb)
+                words_d, wit_d, wcnt_d, vseg_d, vcnt_d = self.dispatch.encode(
+                    masks, vals, tab, *scalars, channels=channels, **geom)
             else:
-                masks, counts_d, vals = _phase_a(stacked, npad=npad, nb=nb)
-            counts = counts_d.cpu().numpy()
-        any_motion = bool(shifts.any())
-        if stage_times is not None:
-            stage_times["enc_device_phase_a"] = (
-                stage_times.get("enc_device_phase_a", 0.0)
-                + time.time() - _t0)
-            _t0 = time.time()
-        packed_cache: dict = {}
-
-        def packed_row(j):
-            if "packed" not in packed_cache:
-                packed = (_phase_a_packed_motion(stacked, shifts_d,
-                                                 npad=npad)
-                          if any_motion
-                          else _phase_a_packed(stacked, npad=npad))
-                packed_cache["packed"] = packed.cpu().numpy()
-            return packed_cache["packed"][j]
-
-        kinds, ks, m_arr, fk_arr, thi, tlo, geom = chunk_params(counts, n,
-                                                                 nb)
-        scalars = frame_scalars(self.device, m_arr, thi, tlo, fk_arr)
-        if self.dispatch is not None:
-            words_d, wit_d, wcnt_d, vseg_d, vcnt_d = self.dispatch.encode(
-                masks, vals, tab, *scalars, channels=channels, **geom)
-        else:
-            words_d, wit_d, wcnt_d, vseg_d, vcnt_d = bk.blocked_encode_h(
-                masks, tab["h1"], tab["h2"], tab["act_hi"], tab["act_lo"],
-                vals, *scalars, **geom)
-            vseg_d = _pack_vseg_bytes(vseg_d, channels)
-        frame_counts = counts.sum(axis=1)
-        if stage_times is not None:
-            _t1 = time.time()
-            stage_times["enc_param_math"] = (
-                stage_times.get("enc_param_math", 0.0) + _t1 - _t0)
-            self._sync()
-            stage_times["enc_device_kernel"] = (
-                stage_times.get("enc_device_kernel", 0.0)
-                + time.time() - _t1)
-            _t0 = time.time()
-        words, wit, wcnt, vseg, vcnt = (
-            t.cpu().numpy() for t in (words_d, wit_d, wcnt_d, vseg_d,
-                                      vcnt_d))
-        if stage_times is not None:
-            stage_times["enc_pull"] = (
-                stage_times.get("enc_pull", 0.0) + time.time() - _t0)
-            _t0 = time.time()
+                words_d, wit_d, wcnt_d, vseg_d, vcnt_d = bk.blocked_encode_h(
+                    masks, tab["h1"], tab["h2"], tab["act_hi"], tab["act_lo"],
+                    vals, *scalars, **geom)
+                vseg_d = _pack_vseg_bytes(vseg_d, channels)
+            frame_counts = counts.sum(axis=1)
+            if stage_times is not None:
+                stage.next("nbf.enc_device_kernel")
+                self._sync()
+            stage.next("nbf.enc_pull")
+            words, wit, wcnt, vseg, vcnt = (
+                t.cpu().numpy() for t in (words_d, wit_d, wcnt_d, vseg_d,
+                                          vcnt_d))
 
         def finish() -> tuple:
             """HOST phase: section gathering, entropy coding,
             record assembly.  Runs on pulled numpy arrays (plus
             rare lazy device pulls for pass-through masks and the
             per-tile motion search); thread-safe against a
-            concurrent device phase."""
-            # Stage clock restarts at host-phase entry: under the
-            # pipelined schedule finish() may run later (on a worker)
-            # than the device pull that ended the outer timeline.
-            _t0 = time.time()
+            concurrent device phase.  Its span (``nbf.finish``) and
+            its stages' spans open on the thread that runs it: under
+            the pipelined schedule a worker, later than the device
+            pull that ended the outer timeline."""
+            with profiling.span("nbf.finish"), \
+                    profiling.stages(stage_times) as stage:
+                return host_phase(stage)
+
+        def host_phase(stage) -> tuple:
+            stage.next("nbf.enc_host_sections")
             payload_sink: List[bytes] = []
             keyframes = 0
             # Zoom-tracking state for this chunk: snapshot the stream
@@ -1055,8 +1049,9 @@ class BlockedEncoder:
                 """Per-tile shift map for frame j (lazy: ONE device search
                 per chunk, pulled as a tiny (F, ty, tx, 3) summary)."""
                 if "s" not in tile_cache:
-                    tile_cache["s"] = _tile_motion_best(
-                        stacked, tlog=tlog, stride=stride).cpu().numpy()
+                    with profiling.span("nbf.pull_lazy"):
+                        tile_cache["s"] = _tile_motion_best(
+                            stacked, tlog=tlog, stride=stride).cpu().numpy()
                 return choose_tile_shifts(tile_cache["s"][j])
 
             def _res_candidates(j: int):
@@ -1692,11 +1687,7 @@ class BlockedEncoder:
                     if self.witness_pack:
                         wit_pk[j] = native.bitpack_rows(wit[j], wcnt[j])
 
-            if stage_times is not None:
-                stage_times["enc_host_sections"] = (
-                    stage_times.get("enc_host_sections", 0.0)
-                    + time.time() - _t0)
-                _t0 = time.time()
+            stage.next("nbf.enc_deflate")
             # Bitmap/witness sections DEFLATE at level 1: on near-random
             # filter bits and biased witness bits, higher levels buy <2%
             # over level 1 at 5x the CPU (measured); value streams and DPCM
@@ -1868,10 +1859,7 @@ class BlockedEncoder:
                         rec = frec
                     res_trials[j].append((tag, m, rec))
 
-            if stage_times is not None:
-                stage_times["enc_deflate"] = (
-                    stage_times.get("enc_deflate", 0.0) + time.time() - _t0)
-                _t0 = time.time()
+            stage.next("nbf.enc_assembly")
 
             def _sec(raw: Optional[bytes], zi: int, byte_rans: bool = False):
                 """Per-section coding choice: raw vs DEFLATE vs static
@@ -2058,9 +2046,7 @@ class BlockedEncoder:
                         p, n, ks[j], bm_bytes[j], m * nb,
                         wit_bytes[j], wbits, values_z=values_z,
                         values_count=vcount, rtype=fc.BLOCKED))
-            if stage_times is not None:
-                stage_times["enc_assembly"] = (
-                    stage_times.get("enc_assembly", 0.0) + time.time() - _t0)
+            stage.end()
             # Publish the chunk's exit zoom-tracking state for the next
             # chunk's entry snapshot (finishes run in chunk order, so
             # this is a plain in-order handoff; repeat runs of the same
@@ -2340,79 +2326,68 @@ class BlockedDecoder:
         run's chained last frame).  Returns ``(last_dev, finish)``:
         ``last_dev`` is the device tensor of the final decoded frame —
         the next run can chain on it without a host round trip — and
-        ``finish()`` pulls and returns the decoded frames."""
-        _t0 = time.time()
-        f = len(payloads)
-        shape = tuple(base.shape)
-        h, w = shape[:2]
-        channels = 1 if len(shape) == 2 else shape[2]
-        n = h * w
-        dev = self.device
-        npad = npad_of(n)
-        nb = npad // bk.IPB
+        ``finish()`` pulls and returns the decoded frames.  The uploads
+        and launches after the slicing and the pull in ``finish()`` are
+        both ``nbf.dec_expand_pull``."""
+        with profiling.stages(stage_times) as stage:
+            stage.next("nbf.dec_parse")
+            f = len(payloads)
+            shape = tuple(base.shape)
+            h, w = shape[:2]
+            channels = 1 if len(shape) == 2 else shape[2]
+            n = h * w
+            dev = self.device
+            npad = npad_of(n)
+            nb = npad // bk.IPB
 
-        parsed = self.parse_records(shape, payloads)
-        flags = parsed["flags"]
-        raw_mask = parsed["raw_mask"]
-        shifts = parsed["shifts"]
+            parsed = self.parse_records(shape, payloads)
+            flags = parsed["flags"]
+            raw_mask = parsed["raw_mask"]
+            shifts = parsed["shifts"]
 
-        if stage_times is not None:
-            stage_times["dec_parse"] = (
-                stage_times.get("dec_parse", 0.0) + time.time() - _t0)
-            _t0 = time.time()
-        passes_d, wcnt = self.membership_counts(parsed, shape)
-        if stage_times is not None:
-            stage_times["dec_device_membership"] = (
-                stage_times.get("dec_device_membership", 0.0)
-                + time.time() - _t0)
-            _t0 = time.time()
+            stage.next("nbf.dec_device_membership")
+            passes_d, wcnt = self.membership_counts(parsed, shape)
+            stage.next("nbf.dec_host_slices")
 
-        wit, block_counts, vseg, vh = self.slice_streams(
-            parsed, wcnt, nb, channels)
+            wit, block_counts, vseg, vh = self.slice_streams(
+                parsed, wcnt, nb, channels)
 
-        if stage_times is not None:
-            stage_times["dec_host_slices"] = (
-                stage_times.get("dec_host_slices", 0.0)
-                + time.time() - _t0)
-            _t0 = time.time()
-        # pass-through/sparse masks are rare; when none occurred the
-        # raw-mask array is all zero — create it on the device instead
-        # of uploading zeros.  wit/vseg are reused staging buffers, so
-        # they are copied (a CPU "upload" would alias them).
-        raw_d = (torch.from_numpy(raw_mask).to(dev) if parsed["raw_used"]
-                 else torch.zeros((f, nb, bk.IPB), dtype=torch.uint8,
-                                  device=dev))
-        wit_d = torch.from_numpy(wit).to(dev, copy=True)
-        vbytes_d = torch.from_numpy(vseg).to(dev)
-        flags_d = torch.from_numpy(flags).to(dev)
-        base_d = (base if torch.is_tensor(base)
-                  else torch.from_numpy(np.array(base, np.uint8)).to(dev))
-        if bool(shifts.any()):
-            if self.dispatch is not None:
-                mask_d, vals_d = self.dispatch.expand(
-                    passes_d, wit_d, raw_d, flags_d, vbytes_d, vh=vh,
-                    channels=channels)
+            stage.next("nbf.dec_expand_pull")
+            # pass-through/sparse masks are rare; when none occurred the
+            # raw-mask array is all zero — create it on the device instead
+            # of uploading zeros.  wit/vseg are reused staging buffers, so
+            # they are copied (a CPU "upload" would alias them).
+            raw_d = (torch.from_numpy(raw_mask).to(dev) if parsed["raw_used"]
+                     else torch.zeros((f, nb, bk.IPB), dtype=torch.uint8,
+                                      device=dev))
+            wit_d = torch.from_numpy(wit).to(dev, copy=True)
+            vbytes_d = torch.from_numpy(vseg).to(dev)
+            flags_d = torch.from_numpy(flags).to(dev)
+            base_d = (base if torch.is_tensor(base)
+                      else torch.from_numpy(np.array(base, np.uint8)).to(dev))
+            if bool(shifts.any()):
+                if self.dispatch is not None:
+                    mask_d, vals_d = self.dispatch.expand(
+                        passes_d, wit_d, raw_d, flags_d, vbytes_d, vh=vh,
+                        channels=channels)
+                else:
+                    mask_d, vals_d = bk.blocked_expand(
+                        passes_d, wit_d, raw_d, flags_d,
+                        _unpack_vseg_bytes(vbytes_d, channels), vh=vh)
+                frames_d = _chain_apply_motion(base_d, mask_d, vals_d, shifts,
+                                               shape=shape)
             else:
-                mask_d, vals_d = bk.blocked_expand(
+                # K3 chains every block column through the chunk, so it runs
+                # unsharded on the home device, with or without a mesh
+                packed = bk.blocked_expand_chain(
                     passes_d, wit_d, raw_d, flags_d,
-                    _unpack_vseg_bytes(vbytes_d, channels), vh=vh)
-            frames_d = _chain_apply_motion(base_d, mask_d, vals_d, shifts,
-                                           shape=shape)
-        else:
-            # K3 chains every block column through the chunk, so it runs
-            # unsharded on the home device, with or without a mesh
-            packed = bk.blocked_expand_chain(
-                passes_d, wit_d, raw_d, flags_d,
-                _unpack_vseg_bytes(vbytes_d, channels),
-                _pack_base(base_d, npad=npad, nb=nb), vh=vh)
-            frames_d = _unpack_frames(packed, shape=shape)
+                    _unpack_vseg_bytes(vbytes_d, channels),
+                    _pack_base(base_d, npad=npad, nb=nb), vh=vh)
+                frames_d = _unpack_frames(packed, shape=shape)
 
         def finish() -> List[np.ndarray]:
-            frames = frames_d.cpu().numpy()
-            if stage_times is not None:
-                stage_times["dec_expand_pull"] = (
-                    stage_times.get("dec_expand_pull", 0.0)
-                    + time.time() - _t0)
+            with profiling.span("nbf.dec_expand_pull", stage_times):
+                frames = frames_d.cpu().numpy()
             return [frames[j] for j in range(f)]
 
         return frames_d[f - 1], finish

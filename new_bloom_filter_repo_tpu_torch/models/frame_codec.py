@@ -31,6 +31,8 @@ from typing import Optional
 
 import numpy as np
 
+from new_bloom_filter_repo_tpu_torch.utils import profiling
+
 
 KEYFRAME = 1
 INTERFRAME = 0
@@ -342,22 +344,23 @@ def encode_keyframe_best(frame: np.ndarray, yuv_info: dict | None = None,
     byte/context rANS over DEFLATE — a 3-5% win on grain-dominated
     keyframes where Huffman's integer bit lengths round up.  Non-uint8
     frames always return the unfiltered record (byte-level filtering
-    across wide samples mixes exponents)."""
-    best = encode_keyframe(frame, yuv_info, typed=True,
-                           zlib_level=zlib_level)
-    if np.asarray(frame).dtype != np.uint8:
+    across wide samples mixes exponents).  One ``nbf.keyframe`` span."""
+    with profiling.span("nbf.keyframe"):
+        best = encode_keyframe(frame, yuv_info, typed=True,
+                               zlib_level=zlib_level)
+        if np.asarray(frame).dtype != np.uint8:
+            return best
+        best_fid = 0
+        for fid in (1, 2, 3):
+            cand = encode_keyframe(frame, yuv_info, typed=True,
+                                   zlib_level=zlib_level, filter_id=fid)
+            if len(cand) < len(best):
+                best, best_fid = cand, fid
+        cand = encode_keyframe_s(frame, yuv_info, filter_id=best_fid,
+                                 zlib_level=zlib_level)
+        if cand is not None and len(cand) < len(best):
+            best = cand
         return best
-    best_fid = 0
-    for fid in (1, 2, 3):
-        cand = encode_keyframe(frame, yuv_info, typed=True,
-                               zlib_level=zlib_level, filter_id=fid)
-        if len(cand) < len(best):
-            best, best_fid = cand, fid
-    cand = encode_keyframe_s(frame, yuv_info, filter_id=best_fid,
-                             zlib_level=zlib_level)
-    if cand is not None and len(cand) < len(best):
-        best = cand
-    return best
 
 
 def _best_byte_sec(raw: bytes, zlib_level: int, stride: int = 0) -> tuple:

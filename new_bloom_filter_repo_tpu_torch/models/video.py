@@ -70,7 +70,11 @@ from new_bloom_filter_repo_tpu_torch.parallel.mesh import (
     auto_mesh,
     home_device,
 )
-from new_bloom_filter_repo_tpu_torch.utils import container, videoio
+from new_bloom_filter_repo_tpu_torch.utils import (
+    container,
+    profiling,
+    videoio,
+)
 from new_bloom_filter_repo_tpu_torch.utils.yuvframe import (
     YUVFrame,
     unwrap,
@@ -369,12 +373,18 @@ class ImprovedVideoCompressor:
                 darrs[s - 1], cf, self.device)
 
         overlap = os.environ.get("NBF_OVERLAP", "1") == "1"
-        inflight = None  # (future or thunk, real): at most ONE queued
+        # (future or thunk, real, the span of the wait for it): at most
+        # ONE queued
+        inflight = None
         with ThreadPoolExecutor(max_workers=1) as ex:
 
-            def drain(job, real):
+            def drain(job, real, waited):
                 nonlocal keyframes
-                chunk_payloads, kf = job.result() if overlap else job()
+                if overlap:
+                    with profiling.span(waited):
+                        chunk_payloads, kf = job.result()
+                else:
+                    chunk_payloads, kf = job()
                 payloads.extend(chunk_payloads[:real])
                 keyframes += kf
 
@@ -388,7 +398,7 @@ class ImprovedVideoCompressor:
                     job = ex.submit(key_job) if overlap else key_job
                     if inflight is not None:
                         drain(*inflight)
-                    inflight = (job, 1)
+                    inflight = (job, 1, "nbf.wait_keyframe")
                     continue
                 real = end - start
 
@@ -414,7 +424,7 @@ class ImprovedVideoCompressor:
                 job = ex.submit(finish) if overlap else finish
                 if inflight is not None:
                     drain(*inflight)
-                inflight = (job, real)
+                inflight = (job, real, "nbf.wait_finish")
             if inflight is not None:
                 drain(*inflight)
         return payloads, keyframes
@@ -641,50 +651,55 @@ class ImprovedVideoCompressor:
                        input_color_space: str = "BGR") -> Dict:
         """Compress frames; optionally write a .bfvc container.  Same
         surface and stats dict as the reference's."""
-        if not frames:
-            raise ValueError("No frames provided for compression")
-        start = time.time()
-        if input_color_space.upper() == "YUV":
-            self.use_direct_yuv = True
-            frames = [f if hasattr(f, "yuv_info") else
-                      add_yuv_info_to_frame(f) for f in frames]
-        original_size = sum(f.nbytes for f in frames)
-        if self.mode == "keyframe":
-            payloads = self.compressor.compress_video(frames)
-            keyframes = len(frames)
-            magic = container.MAGIC_FIXED
-        elif self.profile == "planar":
-            payloads, keyframes, original_size = self._encode_planar(frames)
-            magic = container.MAGIC_BLOOM
-        else:
-            payloads, keyframes = self._encode_frames(frames)
-            magic = container.MAGIC_BLOOM
-        if output_path:
-            container.write_bfvc(output_path, payloads, magic)
-            compressed_size = os.path.getsize(output_path)
-        else:
-            compressed_size = (8 + sum(4 + len(p) for p in payloads))
-        ratio = compressed_size / original_size
-        elapsed = time.time() - start
-        results = {
-            "frame_count": len(frames),
-            "original_size": original_size,
-            "compressed_size": compressed_size,
-            "compression_ratio": ratio,
-            "space_savings": 1.0 - ratio,
-            "compression_time": elapsed,
-            "frames_per_second": len(frames) / elapsed if elapsed > 0 else 0.0,
-            "keyframes": keyframes,
-            "keyframe_ratio": keyframes / len(frames),
-            "output_path": output_path,
-            "color_space": input_color_space,
-            "overall_ratio": ratio,
-        }
-        if self.verbose:
-            print(f"Compression Ratio: {ratio:.4f}  Time: {elapsed:.2f} s  "
-                  f"FPS: {results['frames_per_second']:.2f}  "
-                  f"Keyframes: {keyframes}")
-        return results
+        with profiling.span("nbf.compress"):
+            if not frames:
+                raise ValueError("No frames provided for compression")
+            start = time.time()
+            if input_color_space.upper() == "YUV":
+                self.use_direct_yuv = True
+                frames = [f if hasattr(f, "yuv_info") else
+                          add_yuv_info_to_frame(f) for f in frames]
+            original_size = sum(f.nbytes for f in frames)
+            if self.mode == "keyframe":
+                payloads = self.compressor.compress_video(frames)
+                keyframes = len(frames)
+                magic = container.MAGIC_FIXED
+            elif self.profile == "planar":
+                payloads, keyframes, original_size = self._encode_planar(
+                    frames)
+                magic = container.MAGIC_BLOOM
+            else:
+                payloads, keyframes = self._encode_frames(frames)
+                magic = container.MAGIC_BLOOM
+            if output_path:
+                with profiling.span("nbf.write_bfvc"):
+                    container.write_bfvc(output_path, payloads, magic)
+                compressed_size = os.path.getsize(output_path)
+            else:
+                compressed_size = (8 + sum(4 + len(p) for p in payloads))
+            ratio = compressed_size / original_size
+            elapsed = time.time() - start
+            results = {
+                "frame_count": len(frames),
+                "original_size": original_size,
+                "compressed_size": compressed_size,
+                "compression_ratio": ratio,
+                "space_savings": 1.0 - ratio,
+                "compression_time": elapsed,
+                "frames_per_second": (len(frames) / elapsed
+                                      if elapsed > 0 else 0.0),
+                "keyframes": keyframes,
+                "keyframe_ratio": keyframes / len(frames),
+                "output_path": output_path,
+                "color_space": input_color_space,
+                "overall_ratio": ratio,
+            }
+            if self.verbose:
+                print(f"Compression Ratio: {ratio:.4f}  "
+                      f"Time: {elapsed:.2f} s  "
+                      f"FPS: {results['frames_per_second']:.2f}  "
+                      f"Keyframes: {keyframes}")
+            return results
 
     # -- decoding ----------------------------------------------------------
 
@@ -792,20 +807,21 @@ class ImprovedVideoCompressor:
             rtype = fc.record_type(payloads[i])
             if rtype in (fc.KEYFRAME, fc.FILTERED, fc.KEYFRAME_S):
                 _flush_runs()
-                if rtype == fc.KEYFRAME_S:
-                    frame, info = fc.decode_keyframe_s(payloads[i],
-                                                       offset=1)
-                elif rtype == fc.FILTERED:
-                    fid = payloads[i][1]
-                    if fid not in (1, 2, 3):
-                        raise ValueError(
-                            f"unknown keyframe filter id: {fid}")
-                    frame, info = fc.decode_keyframe(payloads[i],
-                                                     offset=2,
-                                                     filter_id=fid)
-                else:
-                    frame, info = fc.decode_keyframe(payloads[i],
-                                                     offset=1)
+                with profiling.span("nbf.keyframe_decode"):
+                    if rtype == fc.KEYFRAME_S:
+                        frame, info = fc.decode_keyframe_s(payloads[i],
+                                                           offset=1)
+                    elif rtype == fc.FILTERED:
+                        fid = payloads[i][1]
+                        if fid not in (1, 2, 3):
+                            raise ValueError(
+                                f"unknown keyframe filter id: {fid}")
+                        frame, info = fc.decode_keyframe(payloads[i],
+                                                         offset=2,
+                                                         filter_id=fid)
+                    else:
+                        frame, info = fc.decode_keyframe(payloads[i],
+                                                         offset=1)
                 prev, prev_info = np.asarray(frame), _copy_info(info)
                 hist.append(prev)
                 del hist[:-15]
@@ -893,54 +909,55 @@ class ImprovedVideoCompressor:
         against the running reconstruction ``prev`` and its history.
         ``byte_domain``: the stream inter-codes the byte view, where the
         encoder emits only plain and integer-motion residuals."""
-        if byte_domain and rtype in _NOT_BYTE_DOMAIN:
-            raise ValueError(f"{_NOT_BYTE_DOMAIN[rtype]} wrapper on "
-                             f"byte-domain stream")
-        if rtype in (fc.TILES, fc.TILES_HP):
-            tlog, tshifts, off = fc.parse_motion_tiles(payload)
-            residual = fc.parse_residual_any(payload, off, prev.shape)
-            pred = (fc.tile_predict_hp(prev, tshifts, tlog)
-                    if rtype == fc.TILES_HP
-                    else fc.tile_predict(prev, tshifts, tlog))
-            return fc.apply_residual(pred, residual)
-        if rtype in (fc.ZOOM_G, fc.ROT_G, fc.AVG2, fc.REF_HP):
-            if rtype == fc.ZOOM_G:
-                rb, *params, off = fc.parse_motion_zoom(payload)
-                what = "zoom-motion record"
-            elif rtype == fc.ROT_G:
-                rb, *params, off = fc.parse_motion_rot(payload)
-                what = "rotation record"
-            elif rtype == fc.AVG2:
-                rb, thr, off = fc.parse_motion_avg2(payload)
-                what = "avg2 record"
-            else:
-                rb, sy, sx, off = fc.parse_motion_ref(payload)
-                what = "multi-ref record"
-            if rb > len(hist):
-                raise ValueError(f"{what} needs {rb} frames of history, "
-                                 f"have {len(hist)}")
-            residual = fc.parse_residual_any(payload, off, prev.shape)
-            if rtype == fc.ZOOM_G:
-                pred = fc.zoom_predict(hist[-rb], *params)
-            elif rtype == fc.ROT_G:
-                pred = fc.rot_predict(hist[-rb], *params)
-            elif rtype == fc.AVG2:
-                pred = fc.avg2_predict(prev, hist[-rb], thr)
-            else:
-                return fc.apply_residual(hist[-rb], residual, sy, sx,
-                                         halfpel=True)
-            return fc.apply_residual(pred, residual)
-        dy = dx = 0
-        off = 0
-        if rtype in (fc.MOTION, fc.MOTION_HP):
-            dy, dx, off = fc.parse_motion(payload)
-        # the encoder diffed/rolled the byte view, so the residual
-        # applies on the same representation
-        base = self._byte_view(prev) if byte_domain else prev
-        residual = fc.parse_residual_any(payload, off, base.shape)
-        frame = fc.apply_residual(base, residual, dy, dx,
-                                  halfpel=rtype == fc.MOTION_HP)
-        return _from_bytes(frame, prev) if byte_domain else frame
+        with profiling.span("nbf.residual_apply"):
+            if byte_domain and rtype in _NOT_BYTE_DOMAIN:
+                raise ValueError(f"{_NOT_BYTE_DOMAIN[rtype]} wrapper on "
+                                 f"byte-domain stream")
+            if rtype in (fc.TILES, fc.TILES_HP):
+                tlog, tshifts, off = fc.parse_motion_tiles(payload)
+                residual = fc.parse_residual_any(payload, off, prev.shape)
+                pred = (fc.tile_predict_hp(prev, tshifts, tlog)
+                        if rtype == fc.TILES_HP
+                        else fc.tile_predict(prev, tshifts, tlog))
+                return fc.apply_residual(pred, residual)
+            if rtype in (fc.ZOOM_G, fc.ROT_G, fc.AVG2, fc.REF_HP):
+                if rtype == fc.ZOOM_G:
+                    rb, *params, off = fc.parse_motion_zoom(payload)
+                    what = "zoom-motion record"
+                elif rtype == fc.ROT_G:
+                    rb, *params, off = fc.parse_motion_rot(payload)
+                    what = "rotation record"
+                elif rtype == fc.AVG2:
+                    rb, thr, off = fc.parse_motion_avg2(payload)
+                    what = "avg2 record"
+                else:
+                    rb, sy, sx, off = fc.parse_motion_ref(payload)
+                    what = "multi-ref record"
+                if rb > len(hist):
+                    raise ValueError(f"{what} needs {rb} frames of history, "
+                                     f"have {len(hist)}")
+                residual = fc.parse_residual_any(payload, off, prev.shape)
+                if rtype == fc.ZOOM_G:
+                    pred = fc.zoom_predict(hist[-rb], *params)
+                elif rtype == fc.ROT_G:
+                    pred = fc.rot_predict(hist[-rb], *params)
+                elif rtype == fc.AVG2:
+                    pred = fc.avg2_predict(prev, hist[-rb], thr)
+                else:
+                    return fc.apply_residual(hist[-rb], residual, sy, sx,
+                                             halfpel=True)
+                return fc.apply_residual(pred, residual)
+            dy = dx = 0
+            off = 0
+            if rtype in (fc.MOTION, fc.MOTION_HP):
+                dy, dx, off = fc.parse_motion(payload)
+            # the encoder diffed/rolled the byte view, so the residual
+            # applies on the same representation
+            base = self._byte_view(prev) if byte_domain else prev
+            residual = fc.parse_residual_any(payload, off, base.shape)
+            frame = fc.apply_residual(base, residual, dy, dx,
+                                      halfpel=rtype == fc.MOTION_HP)
+            return _from_bytes(frame, prev) if byte_domain else frame
 
     @staticmethod
     def _is_legacy_bloom(payload: bytes) -> bool:
@@ -1044,45 +1061,47 @@ class ImprovedVideoCompressor:
                          compressed_frames: List[bytes] = None,
                          metadata: Dict = None) -> List[np.ndarray]:
         """Decompress from a .bfvc file or a raw payload list."""
-        start = time.time()
-        magic = container.MAGIC_FIXED
-        if input_path:
-            if not os.path.exists(input_path):
-                raise FileNotFoundError(input_path)
-            magic, compressed_frames = container.read_bfvc(input_path)
-        if not compressed_frames:
-            raise ValueError("No compressed frames provided")
-        frames = self._decode_payloads(compressed_frames,
-                                       typed=(magic == container.MAGIC_BLOOM))
-        if output_path:
-            low = output_path.lower()
-            if low.endswith(".yuv"):
-                # byte-exact raw planar export (native planes)
-                videoio.write_raw_yuv(output_path, frames)
-            elif low.endswith(".y4m"):
-                infos = [yuv_info_of(f) for f in frames]
-                if any(i is None for i in infos):
-                    raise ValueError(
-                        "y4m export requires YUV frames — compress with "
-                        "--color-space YUV (the default for .y4m/.yuv "
-                        "inputs) to round-trip back to Y4M")
-                fmt = infos[0].get("format", "444")
-                cs = {"I420": "420jpeg", "YV12": "420jpeg",
-                      "YUV422": "422", "YUV444": "444"}.get(fmt, fmt)
-                h, w = np.asarray(infos[0]["y_plane"]).shape
-                videoio.write_y4m(
-                    output_path,
-                    [(np.asarray(i["y_plane"]), np.asarray(i["u_plane"]),
-                      np.asarray(i["v_plane"])) for i in infos],
-                    w, h, colorspace=cs)
-            else:
-                self.save_frames_as_video(frames, output_path)
-        if self.verbose:
-            dt = time.time() - start
-            print(f"Decompressed {len(frames)} frames in {dt:.2f} seconds")
-            if dt > 0:
-                print(f"Frames Per Second: {len(frames) / dt:.2f}")
-        return frames
+        with profiling.span("nbf.decompress"):
+            start = time.time()
+            magic = container.MAGIC_FIXED
+            if input_path:
+                if not os.path.exists(input_path):
+                    raise FileNotFoundError(input_path)
+                with profiling.span("nbf.read_bfvc"):
+                    magic, compressed_frames = container.read_bfvc(input_path)
+            if not compressed_frames:
+                raise ValueError("No compressed frames provided")
+            frames = self._decode_payloads(
+                compressed_frames, typed=(magic == container.MAGIC_BLOOM))
+            if output_path:
+                low = output_path.lower()
+                if low.endswith(".yuv"):
+                    # byte-exact raw planar export (native planes)
+                    videoio.write_raw_yuv(output_path, frames)
+                elif low.endswith(".y4m"):
+                    infos = [yuv_info_of(f) for f in frames]
+                    if any(i is None for i in infos):
+                        raise ValueError(
+                            "y4m export requires YUV frames — compress with "
+                            "--color-space YUV (the default for .y4m/.yuv "
+                            "inputs) to round-trip back to Y4M")
+                    fmt = infos[0].get("format", "444")
+                    cs = {"I420": "420jpeg", "YV12": "420jpeg",
+                          "YUV422": "422", "YUV444": "444"}.get(fmt, fmt)
+                    h, w = np.asarray(infos[0]["y_plane"]).shape
+                    videoio.write_y4m(
+                        output_path,
+                        [(np.asarray(i["y_plane"]), np.asarray(i["u_plane"]),
+                          np.asarray(i["v_plane"])) for i in infos],
+                        w, h, colorspace=cs)
+                else:
+                    self.save_frames_as_video(frames, output_path)
+            if self.verbose:
+                dt = time.time() - start
+                print(f"Decompressed {len(frames)} frames in {dt:.2f} seconds")
+                if dt > 0:
+                    print(f"Frames Per Second: {len(frames) / dt:.2f}")
+            return frames
 
     # -- verification & I/O -------------------------------------------------
 

@@ -10,6 +10,8 @@ are held to their plain PyTorch twins, which the CPU tests hold to the
 JAX Pallas kernels.  Every comparison is exact.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -574,3 +576,48 @@ def test_damaged_k_decodes_on_the_card_as_on_the_cpu(dev, tmp_path):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def test_a_worker_threads_kernel_lies_in_its_span_on_the_trace_clock(
+        dev, tmp_path):
+    """Spans of the overlap worker are kept by the program, not traced;
+    mapped onto the trace's clock through the main thread's spans
+    (``portbench/programspans.py``), a kernel the worker launched
+    inside its span starts after the span did."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from new_bloom_filter_repo_tpu_torch.utils import profiling
+    from portbench import programspans, tracestats
+    from portbench.run import Record
+
+    x = torch.arange(1 << 20, device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+
+    def job():
+        with profiling.span("nbf.pull_lazy"):
+            time.sleep(0.002)
+            return (x * 3).sum().cpu()
+
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        ex.submit(lambda: None).result()
+        profiling.clear_spans()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("compress_video"):
+                with profiling.span("nbf.compress"):
+                    with profiling.span("nbf.wait_finish"):
+                        got = ex.submit(job).result()
+    assert got.item() == 3 * (1 << 20) * ((1 << 20) - 1) / 2
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    trace = tracestats.Trace.load(path)
+    rec = Record([{"phase": "compress_video", "frames": 1}], 0.0, trace)
+    (span,) = [s for s in programspans.mapped(rec)
+               if s.name == "nbf.pull_lazy"]
+    assert span.thread != threading.main_thread().ident
+    inside = [k for k in trace.kernels if span.start <= k[0] <= span.end]
+    assert inside, (span, trace.kernels)
+    assert all(k[0] >= span.start for k in trace.kernels)
