@@ -25,9 +25,11 @@ from __future__ import annotations
 
 import io
 import math
+import os
 import struct
+import threading
 import zlib
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -269,6 +271,75 @@ def spatial_unfilter(arr: np.ndarray, fid: int) -> np.ndarray:
     return np.cumsum(arr, axis=axis, dtype=np.uint8)
 
 
+def _keyframe_flag(frame: np.ndarray, yuv_info: dict | None,
+                   typed: bool) -> int:
+    """The plane flag of a keyframe record: 0 no planes, 1 frame and
+    planes, 2 planes = frame channels (typed), 3 planes only (typed)."""
+    if yuv_info is None:
+        return 0
+    if typed:
+        if _planes_are_channels(frame, yuv_info):
+            return 2
+        if _frame_is_plane_upsample(frame, yuv_info):
+            return 3
+    return 1
+
+
+def _keyframe_arrays(frame: np.ndarray, yuv_info: dict | None,
+                     flag: int) -> list:
+    """The arrays a keyframe record stores as byte streams, in record
+    order: the frame unless flag 3, then Y/U/V for flags 1 and 3."""
+    arrs = [] if flag == 3 else [frame]
+    if flag in (1, 3):
+        arrs += [np.asarray(yuv_info[plane])
+                 for plane in ("y_plane", "u_plane", "v_plane")]
+    return arrs
+
+
+def _stream_bytes(arr: np.ndarray, filter_id: int) -> bytes:
+    """One stored byte stream, spatially predicted when ``filter_id``."""
+    if filter_id:
+        return spatial_filter(arr, filter_id).tobytes()
+    return np.asarray(arr).tobytes()
+
+
+def _keyframe_record(frame: np.ndarray, yuv_info: dict | None, flag: int,
+                     zs: list, typed: bool, filter_id: int) -> bytes:
+    """A type-1 (or type-11 when ``filter_id``) keyframe record, or the
+    untyped reference layout, around ``zs``: the DEFLATE of each stream
+    of :func:`_keyframe_arrays`, in that order."""
+    buf = io.BytesIO()
+    if typed:
+        if filter_id:
+            buf.write(_U8.pack(FILTERED))
+            buf.write(_U8.pack(filter_id))
+        else:
+            buf.write(_U8.pack(KEYFRAME))
+    buf.write(_HDR_III.pack(frame.shape[0], frame.shape[1],
+                            frame.dtype.itemsize))
+    zs = iter(zs)
+    if flag == 3:
+        buf.write(_U32.pack(0))  # frame payload elided (derivable)
+    else:
+        z = next(zs)
+        buf.write(_U32.pack(len(z)))
+        buf.write(z)
+    buf.write(_U8.pack(flag))
+    if flag == 0:
+        return buf.getvalue()
+    fmt = yuv_info.get("format", "YUV444").encode("utf-8")
+    buf.write(_U16.pack(len(fmt)))
+    buf.write(fmt)
+    if flag == 2:
+        return buf.getvalue()
+    for plane in ("y_plane", "u_plane", "v_plane"):
+        pz = next(zs)
+        buf.write(_U32.pack(len(pz)))
+        buf.write(pz)
+        buf.write(struct.pack("<II", *np.asarray(yuv_info[plane]).shape))
+    return buf.getvalue()
+
+
 def encode_keyframe(frame: np.ndarray, yuv_info: dict | None = None,
                     typed: bool = False, zlib_level: int = 9,
                     filter_id: int = 0) -> bytes:
@@ -289,48 +360,36 @@ def encode_keyframe(frame: np.ndarray, yuv_info: dict | None = None,
     frame = np.asarray(frame)
     if filter_id and (not typed or frame.dtype != np.uint8):
         raise ValueError("filtered keyframes require typed uint8 frames")
+    flag = _keyframe_flag(frame, yuv_info, typed)
+    zs = [zlib.compress(_stream_bytes(a, filter_id), level=zlib_level)
+          for a in _keyframe_arrays(frame, yuv_info, flag)]
+    return _keyframe_record(frame, yuv_info, flag, zs, typed, filter_id)
 
-    def _z(a: np.ndarray) -> bytes:
-        if filter_id:
-            a = spatial_filter(a, filter_id)
-        return zlib.compress(a.tobytes(), level=zlib_level)
 
-    buf = io.BytesIO()
-    if typed:
-        if filter_id:
-            buf.write(_U8.pack(FILTERED))
-            buf.write(_U8.pack(filter_id))
-        else:
-            buf.write(_U8.pack(KEYFRAME))
-    flag = 0 if yuv_info is None else 1
-    if typed and yuv_info is not None:
-        if _planes_are_channels(frame, yuv_info):
-            flag = 2
-        elif _frame_is_plane_upsample(frame, yuv_info):
-            flag = 3
-    buf.write(_HDR_III.pack(frame.shape[0], frame.shape[1],
-                            frame.dtype.itemsize))
-    if flag == 3:
-        buf.write(_U32.pack(0))  # frame payload elided (derivable)
-    else:
-        z = _z(frame)
-        buf.write(_U32.pack(len(z)))
-        buf.write(z)
-    buf.write(_U8.pack(flag))
-    if flag == 0:
-        return buf.getvalue()
-    fmt = yuv_info.get("format", "YUV444").encode("utf-8")
-    buf.write(_U16.pack(len(fmt)))
-    buf.write(fmt)
-    if flag == 2:
-        return buf.getvalue()
-    for plane in ("y_plane", "u_plane", "v_plane"):
-        arr = np.asarray(yuv_info[plane])
-        pz = _z(arr)
-        buf.write(_U32.pack(len(pz)))
-        buf.write(pz)
-        buf.write(struct.pack("<II", *arr.shape))
-    return buf.getvalue()
+# How often encode_keyframe_best batched its trials' DEFLATEs: calls
+# (``keyframes``), native batches, streams in them, and streams whose
+# DEFLATE the sectioned trial took from the batch.
+_TRIAL_KEYS = ("keyframes", "batches", "streams", "reused")
+_trial_counts = dict.fromkeys(_TRIAL_KEYS, 0)
+_trial_lock = threading.Lock()
+
+
+def reset_keyframe_trial_counts() -> None:
+    """Set every count of :func:`keyframe_trial_counts` to 0."""
+    with _trial_lock:
+        _trial_counts.update(dict.fromkeys(_TRIAL_KEYS, 0))
+
+
+def keyframe_trial_counts() -> Dict[str, int]:
+    """Counts of :func:`encode_keyframe_best` since the last reset."""
+    with _trial_lock:
+        return dict(_trial_counts)
+
+
+def _count_trials(**counts: int) -> None:
+    with _trial_lock:
+        for key, n in counts.items():
+            _trial_counts[key] += n
 
 
 def encode_keyframe_best(frame: np.ndarray, yuv_info: dict | None = None,
@@ -344,26 +403,54 @@ def encode_keyframe_best(frame: np.ndarray, yuv_info: dict | None = None,
     byte/context rANS over DEFLATE — a 3-5% win on grain-dominated
     keyframes where Huffman's integer bit lengths round up.  Non-uint8
     frames always return the unfiltered record (byte-level filtering
-    across wide samples mixes exponents).  One ``nbf.keyframe`` span."""
+    across wide samples mixes exponents).
+
+    The four typed trials' streams DEFLATE in one native batch, a
+    thread a stream (``native.deflate_frames``, zlib's bytes), and the
+    sectioned trial reuses the winner's DEFLATEs; the records are those
+    of :func:`encode_keyframe` and :func:`encode_keyframe_s`.  One
+    ``nbf.keyframe`` span, with ``nbf.keyframe_deflate`` and
+    ``nbf.keyframe_sectioned`` inside it."""
+    from new_bloom_filter_repo_tpu_torch.utils import native
+
     with profiling.span("nbf.keyframe"):
-        best = encode_keyframe(frame, yuv_info, typed=True,
-                               zlib_level=zlib_level)
-        if np.asarray(frame).dtype != np.uint8:
-            return best
-        best_fid = 0
-        for fid in (1, 2, 3):
-            cand = encode_keyframe(frame, yuv_info, typed=True,
-                                   zlib_level=zlib_level, filter_id=fid)
+        frame = np.asarray(frame)
+        if frame.dtype != np.uint8:
+            _count_trials(keyframes=1)
+            return encode_keyframe(frame, yuv_info, typed=True,
+                                   zlib_level=zlib_level)
+        flag = _keyframe_flag(frame, yuv_info, True)
+        arrs = _keyframe_arrays(frame, yuv_info, flag)
+        fids = (0, 1, 2, 3)
+        raws = [[_stream_bytes(a, fid) for a in arrs] for fid in fids]
+        flat = [raw for trial in raws for raw in trial]
+        with profiling.span("nbf.keyframe_deflate"):
+            zflat = native.deflate_frames(
+                flat, level=zlib_level,
+                threads=min(len(flat), os.cpu_count() or 1))
+        n = len(arrs)
+        zs = [zflat[i * n:(i + 1) * n] for i in range(len(fids))]
+        records = [_keyframe_record(frame, yuv_info, flag, zs[fid], True,
+                                    fid) for fid in fids]
+        # min keeps the first of the smallest: unfiltered, then 1, 2, 3
+        best_fid = min(fids, key=lambda fid: len(records[fid]))
+        best = records[best_fid]
+        reused = 0
+        if all(a.dtype == np.uint8 for a in arrs):
+            with profiling.span("nbf.keyframe_sectioned"):
+                cand = _keyframe_s_record(frame, yuv_info, flag, best_fid,
+                                          arrs, raws[best_fid], zlib_level,
+                                          zs[best_fid])
+            reused = n
             if len(cand) < len(best):
-                best, best_fid = cand, fid
-        cand = encode_keyframe_s(frame, yuv_info, filter_id=best_fid,
-                                 zlib_level=zlib_level)
-        if cand is not None and len(cand) < len(best):
-            best = cand
+                best = cand
+        _count_trials(keyframes=1, batches=1, streams=len(flat),
+                      reused=reused)
         return best
 
 
-def _best_byte_sec(raw: bytes, zlib_level: int, stride: int = 0) -> tuple:
+def _best_byte_sec(raw: bytes, zlib_level: int, stride: int = 0,
+                   z: Optional[bytes] = None) -> tuple:
     """Best coded section for a byte stream: raw vs DEFLATE vs byte
     rANS vs context rANS, entropy-gated (the H0/H1 bounds skip coders
     that cannot beat the current best — see blocked_pipeline's
@@ -371,9 +458,11 @@ def _best_byte_sec(raw: bytes, zlib_level: int, stride: int = 0) -> tuple:
     row pitch in bytes) additionally arms the 2D-context coder
     (coding 6); when its sampled conditional entropy meaningfully
     beats the horizontal model's, it replaces the order-1 trial —
-    same table cost, so one context trial runs either way."""
+    same table cost, so one context trial runs either way.  ``z``, when
+    given, is ``zlib.compress(raw, zlib_level)`` already computed."""
     from new_bloom_filter_repo_tpu_torch.utils import native
-    z = zlib.compress(raw, zlib_level)
+    if z is None:
+        z = zlib.compress(raw, zlib_level)
     rl = len(raw)
     if len(z) < rl:
         best, cost = (1, z, rl), len(z)
@@ -415,19 +504,21 @@ def encode_keyframe_s(frame: np.ndarray, yuv_info: dict | None = None,
     frame = np.asarray(frame)
     if frame.dtype != np.uint8 or filter_id not in (0, 1, 2, 3):
         return None
+    flag = _keyframe_flag(frame, yuv_info, True)
+    arrs = _keyframe_arrays(frame, yuv_info, flag)
+    if any(a.dtype != np.uint8 for a in arrs):
+        return None
+    return _keyframe_s_record(frame, yuv_info, flag, filter_id, arrs,
+                              [_stream_bytes(a, filter_id) for a in arrs],
+                              zlib_level)
 
-    def _flt(a: np.ndarray) -> bytes:
-        a = np.asarray(a)
-        if filter_id:
-            a = spatial_filter(a, filter_id)
-        return a.tobytes()
 
-    flag = 0 if yuv_info is None else 1
-    if yuv_info is not None:
-        if _planes_are_channels(frame, yuv_info):
-            flag = 2
-        elif _frame_is_plane_upsample(frame, yuv_info):
-            flag = 3
+def _keyframe_s_record(frame: np.ndarray, yuv_info: dict | None,
+                       flag: int, filter_id: int, arrs: list, raws: list,
+                       zlib_level: int, zs: Optional[list] = None) -> bytes:
+    """The type-15 record of :func:`encode_keyframe_s` over the uint8
+    ``arrs`` of :func:`_keyframe_arrays` and their stream bytes
+    ``raws``; ``zs``, when given, holds each stream's DEFLATE."""
     buf = io.BytesIO()
     buf.write(_U8.pack(KEYFRAME_S))
     buf.write(_U8.pack(filter_id))
@@ -437,18 +528,16 @@ def encode_keyframe_s(frame: np.ndarray, yuv_info: dict | None = None,
         fmt = yuv_info.get("format", "YUV444").encode("utf-8")
         buf.write(_U16.pack(len(fmt)))
         buf.write(fmt)
-    if flag != 3:
-        fstride = frame.shape[1] * (
-            frame.shape[2] if frame.ndim == 3 else 1)
-        _write_section(buf, _best_byte_sec(_flt(frame), zlib_level,
-                                           stride=fstride))
-    if flag in (1, 3):
-        for plane in ("y_plane", "u_plane", "v_plane"):
-            arr = np.asarray(yuv_info[plane])
-            if arr.dtype != np.uint8:
-                return None
-            _write_section(buf, _best_byte_sec(_flt(arr), zlib_level,
-                                               stride=arr.shape[1]))
+    first_plane = 0 if flag == 3 else 1
+    for i, (arr, raw) in enumerate(zip(arrs, raws)):
+        if i < first_plane:
+            stride = arr.shape[1] * (arr.shape[2] if arr.ndim == 3 else 1)
+        else:
+            stride = arr.shape[1]
+        _write_section(buf, _best_byte_sec(
+            raw, zlib_level, stride=stride,
+            z=None if zs is None else zs[i]))
+        if i >= first_plane:
             buf.write(struct.pack("<II", *arr.shape))
     return buf.getvalue()
 
@@ -527,44 +616,16 @@ def encode_keyframes_batch(frames, infos, typed: bool = False,
     """
     from new_bloom_filter_repo_tpu_torch.utils import native
 
-    buffers = []
-    plan = []  # (frame_idx, [stream slots])
-    for frame, info in zip(frames, infos):
-        arr = np.asarray(frame)
-        slots = [len(buffers)]
-        buffers.append(arr.tobytes())
-        if info is not None:
-            for plane in ("y_plane", "u_plane", "v_plane"):
-                slots.append(len(buffers))
-                buffers.append(np.asarray(info[plane]).tobytes())
-        plan.append(slots)
-
-    compressed = native.deflate_frames(buffers, level=zlib_level,
-                                       threads=threads)
-    records = []
-    for (frame, info), slots in zip(zip(frames, infos), plan):
-        arr = np.asarray(frame)
-        buf = io.BytesIO()
-        if typed:
-            buf.write(_U8.pack(KEYFRAME))
-        z = compressed[slots[0]]
-        buf.write(_HDR_III.pack(arr.shape[0], arr.shape[1],
-                                arr.dtype.itemsize))
-        buf.write(_U32.pack(len(z)))
-        buf.write(z)
-        buf.write(_U8.pack(1 if info is not None else 0))
-        if info is not None:
-            fmt = info.get("format", "YUV444").encode("utf-8")
-            buf.write(_U16.pack(len(fmt)))
-            buf.write(fmt)
-            for slot, plane in zip(slots[1:],
-                                   ("y_plane", "u_plane", "v_plane")):
-                pz = compressed[slot]
-                buf.write(_U32.pack(len(pz)))
-                buf.write(pz)
-                buf.write(struct.pack("<II", *np.asarray(info[plane]).shape))
-        records.append(buf.getvalue())
-    return records
+    frames = [np.asarray(frame) for frame in frames]
+    plan = [(frame, info, _keyframe_flag(frame, info, False))
+            for frame, info in zip(frames, infos)]
+    streams = [_keyframe_arrays(*p) for p in plan]
+    compressed = iter(native.deflate_frames(
+        [a.tobytes() for arrs in streams for a in arrs], level=zlib_level,
+        threads=threads))
+    return [_keyframe_record(frame, info, flag,
+                             [next(compressed) for _ in arrs], typed, 0)
+            for (frame, info, flag), arrs in zip(plan, streams)]
 
 
 def decode_keyframe(data: bytes, offset: int = 0, filter_id: int = 0):

@@ -38,8 +38,9 @@ MAIN_DECOMPRESS = ("nbf.decompress", "nbf.read_bfvc", "nbf.keyframe_decode",
                    "nbf.dec_parse", "nbf.dec_device_membership",
                    "nbf.dec_host_slices", "nbf.dec_expand_pull",
                    "nbf.residual_apply")
-WORKER = ("nbf.keyframe", "nbf.finish", "nbf.enc_host_sections",
-          "nbf.enc_deflate", "nbf.enc_assembly", "nbf.pull_lazy")
+WORKER = ("nbf.keyframe", "nbf.keyframe_deflate", "nbf.keyframe_sectioned",
+          "nbf.finish", "nbf.enc_host_sections", "nbf.enc_deflate",
+          "nbf.enc_assembly", "nbf.pull_lazy")
 
 
 def make_clip():
