@@ -8,15 +8,17 @@ window: ``program`` is the cell as configured; ``control`` is the
 program's own lower-precision path, the near-lossless ``exact=False``
 mode, which breaks the configuration's lossless guarantee; the others
 are the faults of ``faults.py`` planted in the program.  One JSON line a
-seed and variant: the numbers compared and whether the run passed.  The
-benchmark's own runs never run this.
+seed and variant: the numbers compared and whether the run passed (a
+run that raises does not pass).  The benchmark's own runs never run this.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import sys
 import time
+import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -35,15 +37,23 @@ def variant_config(config: dict, variant: str) -> dict:
 
 
 def read(cell_config, traffic, seed, variant, device, clip=None):
+    """One line: the numbers compared and whether the run passed.  A run
+    that raises ends with no result, as in ``run.py``, and does not pass:
+    its line gives the error in place of the numbers."""
     config = variant_config(cell_config, variant)
+    fault = (faults.planted(variant) if variant in faults.FAULTS
+             else contextlib.nullcontext())
     t = time.perf_counter()
-    if variant in faults.FAULTS:
-        with faults.planted(variant):
+    try:
+        with fault:
             out = run.run_cell(config, traffic, seed, 0, device=device,
                                t0=t, log=lambda msg: None, clip=clip)
-    else:
-        out = run.run_cell(config, traffic, seed, 0, device=device, t0=t,
-                           log=lambda msg: None, clip=clip)
+    except Exception as exc:
+        traceback.print_exc(file=sys.stderr)
+        return {"seed": seed, "variant": variant,
+                "errors": ["".join(traceback.format_exception_only(exc))
+                           .strip()],
+                "passed": False, "seconds": time.perf_counter() - t}
     return {"seed": seed, "variant": variant, **out["numbers"],
             "errors": [r["error"] for r in out["runs"] if r["error"]],
             "passed": out["failed"] == 0

@@ -12,7 +12,8 @@ have.  Used by ``tests/test_portbench_run.py`` on the CPU and by
 - ``skip_keys``: only frame 0 is a scheduled keyframe, whatever the
   configured interval (smaller and faster, but no random access).
 - ``alter``: one byte of one decoded frame is changed where the decoder
-  produces it.
+  produces it; in a planar file, one byte of each plane sequence's
+  middle frame, as each sequence is decoded.
 
 A cell runs on one card, so there is no exchange between cards to
 leave out.  The control (the near-lossless ``exact=False`` path) is not
@@ -92,6 +93,8 @@ def planted(name: str):
         def new(self, payloads, typed):
             out = orig(self, payloads, typed)
             k = len(out) // 2
+            if not isinstance(out[k], np.ndarray):
+                return out  # a planar file's frames, altered in their planes
             frame = np.array(out[k])
             frame.reshape(-1)[frame.size // 2] ^= 1
             out[k] = frame

@@ -12,7 +12,10 @@ rounding of an untouched uint8 pixel gives it back unchanged; noise on
 every pixel is added in place to the draw.
 
 A traffic file (``traffic/<name>.json``) names the keyword arguments;
-the configuration gives the geometry and the colour space.
+the configuration gives the geometry and the colour space.  A
+configuration of ``"layout": "I420"`` takes the same frames through
+``to_i420``, the benchmark's own conversion to 4:2:0 planes, so that a
+mix gives the same scene in either layout.
 """
 
 from __future__ import annotations
@@ -131,3 +134,62 @@ def generate_frames(frame_count: int = 90, width: int = 640,
                   x // 2:x // 2 + w2] = (220, 60, 40)
         frames.append(frame)
     return frames
+
+
+# BT.709 with studio range, in 16 fractional bits: each row is
+# round(K * 2**16) of the matrix that takes 8-bit R, G, B (0-255) to
+# Y' = 16 + 219 (Kr R + Kg G + Kb B) / 255 and Cb, Cr = 128 + 224 (B - Y,
+# R - Y) / (2 (1 - Kb), 2 (1 - Kr)) / 255, with Kr = 0.2126, Kb = 0.0722;
+# each chroma row's middle entry is set so that the row sums to 0 (grey
+# stays at 128).  Columns are R, G, B.
+_BT709 = np.array([[11966, 40254, 4064],
+                   [-6596, -22188, 28784],
+                   [28784, -26145, -2639]], dtype=np.int32)
+
+
+def to_i420(frame: np.ndarray):
+    """The I420 planes ``(y, u, v)`` of one HxWx3 uint8 BGR frame, H and
+    W even: ``y`` is HxW, ``u`` (Cb) and ``v`` (Cr) are (H/2)x(W/2),
+    all uint8.
+
+    Matrix: ITU-R BT.709, studio range (Y 16-235, Cb and Cr 16-240), the
+    matrix of HD masters, in integer fixed point with 16 fractional bits
+    (``_BT709``):
+
+        Y  =  16 + ( 11966 R + 40254 G +  4064 B + 2**15) >> 16
+        Cb = 128 + ( -6596 R - 22188 G + 28784 B + 2**15) >> 16
+        Cr = 128 + ( 28784 R - 26145 G -  2639 B + 2**15) >> 16
+
+    where ``>>`` floors, so each value is rounded half up.
+
+    Chroma filter: a box.  Cb and Cr of a 2x2 block of pixels are the
+    mean of the four pixels' unrounded Cb and Cr, rounded half up once:
+    the rows above applied to the block's summed R, G and B, plus 2**17,
+    shifted right by 18.  These are stated choices, not ffmpeg's (its
+    default chroma downscaler is no box filter).
+    """
+    f = np.asarray(frame)
+    if f.ndim != 3 or f.shape[2] != 3 or f.dtype != np.uint8:
+        raise ValueError(f"to_i420 takes HxWx3 uint8 BGR, got {f.shape} "
+                         f"{f.dtype}")
+    h, w = f.shape[:2]
+    if h % 2 or w % 2:
+        raise ValueError(f"I420 needs an even width and height, got {w}x{h}")
+    # Float products and sums of these integers are exact: every partial
+    # sum of Y stays under 2**24 (float32's integers), the chroma's under
+    # 2**53.
+    y = (f.reshape(-1, 3).astype(np.float32)
+         @ _BT709[0, ::-1].astype(np.float32)).astype(np.int32)
+    y += (16 << 16) + (1 << 15)
+    y >>= 16
+    # Each 2x2 block: its two rows summed, then its two pixels' B, G, R
+    # (one row of 6) through the chroma rows twice, which sums them.
+    rows = f[0::2].astype(np.int16) + f[1::2]
+    kc = _BT709[1:, ::-1].T.astype(np.float64)
+    c = (rows.reshape(-1, 6).astype(np.float64)
+         @ np.vstack([kc, kc])).astype(np.int64)
+    c += (128 << 18) + (1 << 17)
+    c >>= 18
+    planes = (y.reshape(h, w), c[:, 0].reshape(h // 2, w // 2),
+              c[:, 1].reshape(h // 2, w // 2))
+    return tuple(p.astype(np.uint8) for p in planes)

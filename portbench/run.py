@@ -11,6 +11,17 @@ from ``--seed`` in set-up by the benchmark's own generator
 and configuration file (``configs/<name>.json``).  Each call is timed on
 the host clock; both return with their results on the host.
 
+A configuration file gives ``width``, ``height``, ``color_space``, the
+``compressor``'s keyword arguments and, optionally, ``layout``: how a
+frame is laid out, ``"interleaved"`` when the key is absent.
+``"interleaved"``: uint8 frames HxWx3 (BGR) or HxW (gray), as the
+generator makes them; a call's raw bytes are theirs.  ``"I420"``:
+8-bit 4:2:0 planes as a raw ``.yuv`` file holds them, made from the same
+frames by ``generator.to_i420``; it needs ``"color_space": "YUV"`` and
+the ``"planar"`` profile.  The program gets each frame as it gets one
+from ``read_raw_yuv``, a ``YUVFrame`` (the 4:4:4 view and the planes),
+and a call's raw bytes are the planes', W x H x 3/2 a frame.
+
 Once the window has closed, ``reference.py`` judges every round trip:
 the decoded frames against the clip, the stored file against the
 container layout and the keyframe schedule.  ``--trace 1`` runs the same
@@ -38,23 +49,48 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
 import traceback  # noqa: E402
-from typing import Callable, List  # noqa: E402
+from typing import Callable, List, NamedTuple  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
+import numpy as np  # noqa: E402
+
 from portbench import generator, reference, tracestats  # noqa: E402
 
 # Top-level module names that may not be loaded in a run's process.
 FORBIDDEN = ("jax", "jaxlib", "flax", "new_bloom_filter_repo_tpu")
+# The layouts a configuration may state, the default first.
+LAYOUTS = ("interleaved", "I420")
+# The keys of a ``YUVFrame``'s planes, in the order a digest takes them.
+PLANES = ("y_plane", "u_plane", "v_plane")
 # Frames of the untimed round trip in set-up: one keyframe and one
 # whole chunk of inter frames, the shapes every timed chunk has.  They
 # are the clip's first frames, or, where the traffic file gives ``warm``
 # parameters, frames of the same scene made with those (a mix whose
 # every frame takes seconds on the host warms no more shapes for it).
 WARM_FRAMES = 16
+
+
+class Clip(NamedTuple):
+    """A clip in its configuration's layout, the one place that knows
+    the layout.  ``frames``: what the program is given.  ``planes``: each
+    frame's planes as the reference judges them, the frame itself or its
+    Y, U and V.  ``raw_bytes``: the planes' bytes, as the user holds
+    them."""
+
+    layout: str
+    frames: list
+    planes: list
+    raw_bytes: int
+
+    def decoded_planes(self, frame) -> tuple:
+        """A decoded frame's planes, in the order of ``planes``."""
+        if self.layout == "I420":
+            return tuple(frame.yuv_info[k] for k in PLANES)
+        return (frame,)
 
 
 class Record:
@@ -90,7 +126,22 @@ def resolve(spec: dict, workload: str):
         config = json.load(fh)
     with open(os.path.join(HERE, "traffic", cell["traffic"] + ".json")) as fh:
         traffic = json.load(fh)
+    layout_of(config)
     return cell, config, traffic
+
+
+def layout_of(config: dict) -> str:
+    """The configuration's frame layout (see the module docstring);
+    raises ValueError for an unknown one, or for I420 without the colour
+    space and profile that code planes."""
+    layout = config.get("layout", LAYOUTS[0])
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; known: {LAYOUTS}")
+    if layout == "I420" and (config["color_space"] != "YUV" or
+                             config["compressor"].get("profile") != "planar"):
+        raise ValueError('layout "I420" needs "color_space": "YUV" and '
+                         'the compressor\'s "profile": "planar"')
+    return layout
 
 
 def load_metric(name: str):
@@ -128,18 +179,42 @@ def metrics_for(spec: dict, workload: str, trace: bool) -> list:
     return out
 
 
-def make_clip(config: dict, traffic: dict, seed: int) -> list:
-    return generator.generate_frames(
+def make_clip(config: dict, traffic: dict, seed: int) -> Clip:
+    """The clip made from ``seed`` in the configuration's layout.  For
+    I420 the program gets one ``YUVFrame`` a frame, as ``read_raw_yuv``
+    makes them: the planes in ``yuv_info``, ``.data`` the 4:4:4 view
+    with each chroma sample repeated over its 2x2 block."""
+    layout = layout_of(config)
+    frames = generator.generate_frames(
         traffic["frames"], config["width"], config["height"],
         color_space=config["color_space"], seed=seed % (1 << 64),
         **traffic["params"])
+    if layout == "interleaved":
+        planes = [(f,) for f in frames]
+    else:
+        from new_bloom_filter_repo_tpu_torch.utils.yuvframe import YUVFrame
+
+        planes = [generator.to_i420(f) for f in frames]
+        frames = []
+        for y, u, v in planes:
+            h, w = y.shape
+            view = np.empty((h, w, 3), np.uint8)
+            view[:, :, 0] = y
+            blocks = view.reshape(h // 2, 2, w // 2, 2, 3)
+            blocks[:, :, :, :, 1] = u[:, None, :, None]
+            blocks[:, :, :, :, 2] = v[:, None, :, None]
+            frames.append(YUVFrame(view, {"format": "I420", "y_plane": y,
+                                          "u_plane": u, "v_plane": v}))
+    return Clip(layout, frames, planes,
+                sum(p.nbytes for ps in planes for p in ps))
 
 
-def warm_clip(config: dict, traffic: dict, seed: int, clip: list) -> list:
+def warm_clip(config: dict, traffic: dict, seed: int, clip: Clip) -> list:
+    """The frames of the untimed round trip in set-up."""
     if "warm" not in traffic:
-        return clip[:WARM_FRAMES]
+        return clip.frames[:WARM_FRAMES]
     return make_clip(config, dict(traffic, frames=WARM_FRAMES, params={
-        **traffic["params"], **traffic["warm"]}), seed)
+        **traffic["params"], **traffic["warm"]}), seed).frames
 
 
 def forbidden_modules() -> List[str]:
@@ -163,16 +238,16 @@ def round_trip(comp, clip, path, color_space, span) -> tuple:
     """One compress and one decompress of ``clip``; returns the timed
     calls and what the reference judges: the stored file's bytes and the
     decoded frames' digests (None where a call failed)."""
-    raw = sum(f.nbytes for f in clip)
     calls, run = [], {"file": None, "decoded": None, "error": None}
     try:
         with span("compress_video"):
             t = time.perf_counter()
-            comp.compress_video(clip, path, input_color_space=color_space)
+            comp.compress_video(clip.frames, path,
+                                input_color_space=color_space)
             dt = time.perf_counter() - t
         stored = os.path.getsize(path)
         calls.append({"phase": "compress_video", "seconds": dt,
-                      "frames": len(clip), "raw_bytes": raw,
+                      "frames": len(clip.frames), "raw_bytes": clip.raw_bytes,
                       "stored_bytes": stored})
         with open(path, "rb") as fh:
             run["file"] = fh.read()
@@ -181,9 +256,10 @@ def round_trip(comp, clip, path, color_space, span) -> tuple:
             out = comp.decompress_video(path)
             dt = time.perf_counter() - t
         calls.append({"phase": "decompress_video", "seconds": dt,
-                      "frames": len(out), "raw_bytes": raw,
+                      "frames": len(out), "raw_bytes": clip.raw_bytes,
                       "stored_bytes": stored})
-        run["decoded"] = [reference.frame_digest(f) for f in out]
+        run["decoded"] = [reference.digest(clip.decoded_planes(f))
+                          for f in out]
     except Exception as exc:  # the program failed: judged, not raised
         run["error"] = "".join(traceback.format_exception_only(exc)).strip()
         traceback.print_exc(file=sys.stderr)
@@ -196,7 +272,7 @@ def run_cell(config: dict, traffic: dict, seed: int, seconds: float,
     """Set up, run the window, and judge it.  Returns the ``Record``,
     the judged numbers, the round trips, the failures and the peak
     device memory.  ``clip``, where given, is the clip already made
-    from ``seed``."""
+    from ``seed`` (``make_clip``)."""
     import torch
 
     from new_bloom_filter_repo_tpu_torch.models.video import (
@@ -265,8 +341,9 @@ def run_cell(config: dict, traffic: dict, seed: int, seconds: float,
     del comp
     if cuda:
         torch.cuda.empty_cache()
-    judged = reference.judge(clip, config["compressor"]["keyframe_interval"],
-                             runs)
+    judged = reference.judge(clip.planes,
+                             config["compressor"]["keyframe_interval"], runs,
+                             clip.layout)
     numbers = {k: sum(j[k] for j in judged) for k in reference.LIMITS}
     failed = sum(1 for run, j in zip(runs, judged)
                  if run["error"] or not reference.within_limits(j))

@@ -70,3 +70,32 @@ def test_the_traced_run_gives_every_per_layer_metric(card, workload):
             assert value is not None, entry["name"]
         if value is not None and entry["unit"] == "%":
             assert 0 <= value <= 100, (entry["name"], value)
+
+
+def small_i420(mix, **compressor):
+    """An I420 planar configuration at 320x180 under ``mix``, 40 frames:
+    two scheduled keyframes of each plane sequence at GOP 30."""
+    import json
+    import os
+    bench = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(bench, "configs", "bgr1080-gop30.json")) as fh:
+        config = json.load(fh)
+    config = dict(config, layout="I420", color_space="YUV", width=320,
+                  height=180, compressor=dict(config["compressor"],
+                                              profile="planar", **compressor))
+    with open(os.path.join(bench, "traffic", mix + ".json")) as fh:
+        traffic = dict(json.load(fh), frames=40)
+    return config, traffic
+
+
+@pytest.mark.parametrize("mix", ["static", "pan", "sensor"])
+def test_an_i420_run_on_the_card_is_correct_and_its_control_is_not(card,
+                                                                   mix):
+    config, traffic = small_i420(mix)
+    out = run.run_cell(config, traffic, 2**32 + 19, 0, device=card,
+                       log=lambda m: None)
+    assert out["failed"] == 0 and reference.within_limits(out["numbers"])
+    config, traffic = small_i420(mix, exact=False)
+    out = run.run_cell(config, traffic, 2**32 + 19, 0, device=card,
+                       log=lambda m: None)
+    assert out["numbers"]["frames_wrong"] > 0
