@@ -11,7 +11,8 @@ kernel launch Bloom-encodes the chunk (``ops/blocked.py`` K1); the host
 assembles records.  Decode mirrors it: parse, membership kernel (K2),
 host witness/value slicing, then the fused expansion + chain kernel
 (K3), or for runs with motion the expansion kernel (K4) followed by a
-per-frame roll chain, and one pull of the frames.
+per-frame roll chain, and one pull of the frames (into pinned host
+memory, issued at launch, on a CUDA device).
 
 Every tensor lives on the ``device`` the encoder or decoder was built
 with; CPU tensors take the kernels' plain twins.  Built with a ``mesh``
@@ -43,7 +44,8 @@ from __future__ import annotations
 
 import math
 import os
-from typing import List, Optional
+import threading
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -2058,6 +2060,32 @@ class BlockedEncoder:
         return finish
 
 
+# How BlockedDecoder.decode_run_begin pulled its runs' frames: into
+# pinned host memory behind a CUDA event (``pinned``), or not at all, a
+# CPU device's frames being on the host (``plain``); and their bytes.
+_PULL_KEYS = ("pinned", "plain", "bytes")
+_pull_counts = dict.fromkeys(_PULL_KEYS, 0)
+_pull_lock = threading.Lock()
+
+
+def reset_pull_counts() -> None:
+    """Set every count of :func:`pull_counts` to 0."""
+    with _pull_lock:
+        _pull_counts.update(dict.fromkeys(_PULL_KEYS, 0))
+
+
+def pull_counts() -> Dict[str, int]:
+    """Counts of decode-run pulls since the last reset."""
+    with _pull_lock:
+        return dict(_pull_counts)
+
+
+def _count_pull(kind: str, nbytes: int) -> None:
+    with _pull_lock:
+        _pull_counts[kind] += 1
+        _pull_counts["bytes"] += nbytes
+
+
 class BlockedDecoder:
     """Decodes runs of typed records (types 0-pass/2/3/4/7/9, optionally
     type-6 wrapped) through the blocked kernels on ``device``; returns
@@ -2326,9 +2354,11 @@ class BlockedDecoder:
         run's chained last frame).  Returns ``(last_dev, finish)``:
         ``last_dev`` is the device tensor of the final decoded frame —
         the next run can chain on it without a host round trip — and
-        ``finish()`` pulls and returns the decoded frames.  The uploads
-        and launches after the slicing and the pull in ``finish()`` are
-        both ``nbf.dec_expand_pull``."""
+        ``finish()`` returns the decoded frames, views of one host array
+        (on a CUDA device a pinned block whose copy was issued behind the
+        launches, and which ``finish()`` waits on).  The uploads,
+        launches and pull issue after the slicing and the wait in
+        ``finish()`` are all ``nbf.dec_expand_pull``."""
         with profiling.stages(stage_times) as stage:
             stage.next("nbf.dec_parse")
             f = len(payloads)
@@ -2385,9 +2415,26 @@ class BlockedDecoder:
                     _pack_base(base_d, npad=npad, nb=nb), vh=vh)
                 frames_d = _unpack_frames(packed, shape=shape)
 
+            # a card's frames go to pinned host memory in stream order,
+            # right behind this run's kernels, so the copy runs while the
+            # host parses the next run; the caching host allocator reuses
+            # a block only after its copy completes and the caller has
+            # dropped every frame of it.  A CPU device's frames are the
+            # host array already.
+            host, pulled = frames_d, None
+            if frames_d.device.type == "cuda":
+                host = torch.empty(frames_d.shape, dtype=frames_d.dtype,
+                                   pin_memory=True)
+                host.copy_(frames_d, non_blocking=True)
+                pulled = torch.cuda.current_stream(
+                    frames_d.device).record_event()
+            _count_pull("plain" if pulled is None else "pinned", host.nbytes)
+
         def finish() -> List[np.ndarray]:
             with profiling.span("nbf.dec_expand_pull", stage_times):
-                frames = frames_d.cpu().numpy()
+                if pulled is not None:
+                    pulled.synchronize()
+                frames = host.numpy()
             return [frames[j] for j in range(f)]
 
         return frames_d[f - 1], finish

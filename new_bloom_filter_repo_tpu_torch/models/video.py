@@ -786,11 +786,12 @@ class ImprovedVideoCompressor:
             }
             frames.append(YUVFrame(prev, _copy_info(prev_info)))
 
-        # Decode-run pipelining: a device run's frame pull is deferred
-        # until the NEXT run's device work is issued, and consecutive
-        # runs chain on the device-resident last frame.  Host-applied
-        # records (keyframes, residuals, type-0 Bloom runs) flush first:
-        # they need the reconstruction on the host.
+        # Decode-run pipelining: the wait on a device run's frame pull
+        # (issued behind its kernels) is deferred until the NEXT run's
+        # device work is issued, and consecutive runs chain on the
+        # device-resident last frame.  Host-applied records (keyframes,
+        # residuals, type-0 Bloom runs) flush first: they need the
+        # reconstruction on the host.
         run_pending = None   # finish() -> decoded frames of prior run
         chain_dev = None     # device last frame of that run
 
@@ -896,7 +897,7 @@ class ImprovedVideoCompressor:
                     out = [_from_bytes(d, _like) for d in out]
                 return out
 
-            _flush_runs()  # pull the prior run while this one computes
+            _flush_runs()  # the prior run's frames, while this one computes
             run_pending, chain_dev = run_finish, last_dev
             i = j
         _flush_runs()

@@ -1,4 +1,5 @@
-"""K1-K8 and the port's main and mesh paths on an NVIDIA card.
+"""K1-K8, the port's main and mesh paths and its decode pull on an
+NVIDIA card.
 
 Marked ``cuda``: each test skips without a card.  On the card, run
 
@@ -367,6 +368,78 @@ def test_cuda_stream_equals_cpu_stream(dev, tmp_path, name):
     assert len(dec) == len(frames)
     for g, w in zip(dec, frames):
         np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# The decode pull: each device run's frames in pinned host memory
+# ---------------------------------------------------------------------------
+
+def pulled_runs(monkeypatch):
+    """Spy on BlockedDecoder.decode_run_begin: the payload count of every
+    run launched, and the frames each ``finish()`` returned."""
+    runs, pulled = [], []
+    begin = bp.BlockedDecoder.decode_run_begin
+
+    def counted(self, base, payloads, stage_times=None):
+        runs.append(len(payloads))
+        last, fin = begin(self, base, payloads, stage_times)
+
+        def finish():
+            pulled.append(fin())
+            return pulled[-1]
+        return last, finish
+
+    monkeypatch.setattr(bp.BlockedDecoder, "decode_run_begin", counted)
+    return runs, pulled
+
+
+@pytest.mark.parametrize("name", ["static_gentle", "pan"])
+def test_decode_pulls_into_pinned_memory(dev, tmp_path, monkeypatch, name):
+    """Every device run is pulled into page-locked memory (``pinned``
+    equal to the runs, ``plain`` 0), the caller's frames are views of it,
+    and the frames are the input's and the CPU decode's."""
+    frames = generate_frames(40, 320, 180, seed=3, **SUITE[name])
+    path = str(tmp_path / "clip.bfvc")
+    comp = ImprovedVideoCompressor(device=dev)
+    comp.compress_video(frames, path)
+    runs, pulled = pulled_runs(monkeypatch)
+    bp.reset_pull_counts()
+    dec = comp.decompress_video(path)
+    assert len(runs) >= 2 and len(pulled) == len(runs)
+    assert bp.pull_counts() == {"pinned": len(runs), "plain": 0,
+                                "bytes": sum(runs) * frames[0].nbytes}
+    assert all(torch.from_numpy(a).is_pinned() for out in pulled
+               for a in out)
+    from_pulls = {id(a) for out in pulled for a in out}
+    kept = [g for g in dec if id(g) in from_pulls]
+    assert len(kept) > len(dec) // 2
+    assert all(torch.from_numpy(g).is_pinned() for g in kept)
+    ref = ImprovedVideoCompressor(device="cpu").decompress_video(path)
+    assert len(dec) == len(ref) == len(frames)
+    for g, r, w in zip(dec, ref, frames):
+        assert g.tobytes() == r.tobytes() == w.tobytes()
+
+
+def test_kept_frames_survive_later_decodes(dev, tmp_path):
+    """Frames of clip A that the caller keeps hold their pinned blocks:
+    decoding clips B and C with the same compressor, whose blocks return
+    to the cache and are reused, leaves A's frames unchanged."""
+    comp = ImprovedVideoCompressor(device=dev)
+    clips = []
+    for seed, name in enumerate(["static_gentle", "pan", "static_gentle"]):
+        frames = generate_frames(40, 320, 180, seed=10 + seed,
+                                 **SUITE[name])
+        path = str(tmp_path / f"{seed}.bfvc")
+        comp.compress_video(frames, path)
+        clips.append((frames, path))
+    a = comp.decompress_video(clips[0][1])
+    want = [g.tobytes() for g in a]
+    for frames, path in clips[1:]:
+        for g, w in zip(comp.decompress_video(path), frames):
+            assert g.tobytes() == w.tobytes()
+    torch.cuda.synchronize()
+    assert [g.tobytes() for g in a] == want
+    assert want == [w.tobytes() for w in clips[0][0]]
 
 
 # ---------------------------------------------------------------------------

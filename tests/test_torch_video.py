@@ -179,3 +179,35 @@ def test_devices_mesh_bfvc_equals_jax_single_device(tmp_path, name):
         assert a.read() == b.read(), f"{name}: .bfvc bytes differ"
     assert_frames_equal(comp.decompress_video(tpath), frames)
     assert_frames_equal(JaxCompressor().decompress_video(tpath), frames)
+
+
+@pytest.mark.parametrize("name", ["static_gentle", "pan"])
+def test_run_pulls_are_plain_views_on_the_cpu(tmp_path, monkeypatch, name):
+    """On the CPU every device run's frames come back through ``.cpu()``
+    (a view): ``pull_counts()`` reads ``plain`` equal to the runs the
+    decoder launched, ``pinned`` 0 and the runs' padded frame bytes, and
+    the frames are the JAX package's.  The reset zeroes every count."""
+    from new_bloom_filter_repo_tpu_torch.models import blocked_pipeline as tbp
+
+    frames = clip(name, 14, 64, 48)
+    path = str(tmp_path / "t.bfvc")
+    comp = ImprovedVideoCompressor(keyframe_interval=9, batch_size=4,
+                                   device="cpu")
+    comp.compress_video(frames, path)
+    runs = []
+    begin = tbp.BlockedDecoder.decode_run_begin
+
+    def counted(self, base, payloads, stage_times=None):
+        runs.append(len(payloads))
+        return begin(self, base, payloads, stage_times)
+
+    monkeypatch.setattr(tbp.BlockedDecoder, "decode_run_begin", counted)
+    tbp.reset_pull_counts()
+    got = comp.decompress_video(path)
+    assert len(runs) >= 2
+    assert tbp.pull_counts() == {"pinned": 0, "plain": len(runs),
+                                 "bytes": sum(runs) * frames[0].nbytes}
+    assert_frames_equal(got, frames)
+    assert_frames_equal(got, JaxCompressor().decompress_video(path))
+    tbp.reset_pull_counts()
+    assert tbp.pull_counts() == {"pinned": 0, "plain": 0, "bytes": 0}
