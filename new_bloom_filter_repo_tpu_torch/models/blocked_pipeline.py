@@ -42,10 +42,11 @@ every other cell's outputs, and so assembles the same records.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
-import os
 import threading
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -737,32 +738,20 @@ class BlockedEncoder:
         self.zlib_level = zlib_level
         self.num_threads = int(num_threads or 0)
         # Global-motion search (type-6 wrapped records).  Any decoder
-        # of this format reads both; NBF_MOTION=0 / motion=False pins
-        # the co-located diff (byte-identical to older encodes).
-        self.motion = motion and os.environ.get("NBF_MOTION", "1") == "1"
-        # NBF_WITNESS_PACK=0 pins byte-padded witness sections
-        # (codings 0-2) — streams then stay representable in the raw
-        # type-3 layout for cross-version tooling
-        self.witness_pack = os.environ.get("NBF_WITNESS_PACK",
-                                           "1") == "1"
-        # Cross-chunk zoom-tracking state (type-18 search seeds), and the
-        # same for the type-20 rotation: see the reference encoder.
-        # Per-chunk entry snapshots (keyed by the chunk's global frame
-        # offset) make repeated finish() runs idempotent.
-        self._zoom_state: dict = {}
-        self._zoom_entry: dict = {}
-        self._zoom_gframe = 0
-        self._rot_state: dict = {}
-        self._rot_entry: dict = {}
+        # of this format reads both; motion=False pins the co-located
+        # diff (byte-identical to older encodes).
+        self.motion = motion
+        self.begin_stream()
 
     def begin_stream(self) -> None:
         """Reset cross-chunk motion-tracking state at a stream boundary:
         bytes must be a function of the stream alone."""
-        self._zoom_state = {}
-        self._zoom_entry = {}
-        self._zoom_gframe = 0
-        self._rot_state = {}
-        self._rot_entry = {}
+        # the type-18 zoom's and the type-20 rotation's search seeds (see
+        # the reference encoder), and the global frame offset of the
+        # next chunk, which keys their per-chunk entry snapshots
+        self._zoom = MotionTrack()
+        self._rot = MotionTrack()
+        self._gframe = 0
 
     @staticmethod
     def stack_chunk(base: np.ndarray, frames: List[np.ndarray],
@@ -804,12 +793,12 @@ class BlockedEncoder:
                            byte_view: bool = False):
         """DEVICE phase of the chunk encode: phase A, per-frame parameter
         math from the pulled counts, the Bloom-encode kernel (K1), and
-        the output pull.  Returns a ``finish() -> (payloads, keyframes)``
-        closure holding the HOST phase (section gathering, entropy
-        trials, record assembly), safe to run on a worker thread while
-        the caller starts the next chunk's device phase; its two lazy
-        device calls (pass-through masks, per-tile motion search) target
-        this encoder's device.
+        the output pull.  Returns ``finish() -> (payloads, keyframes)``,
+        :func:`finish_chunk` over the pulled :class:`HostChunk`: the
+        HOST phase, safe to run on a worker thread while the caller
+        starts the next chunk's device phase, and again for the same
+        bytes; its two lazy device pulls (pass-through masks, per-tile
+        motion search) target this encoder's device.
 
         ``keyframe_fn(j) -> bytes`` supplies a keyframe record for
         scene-cut fallbacks; ``stacked`` may carry a pre-uploaded
@@ -821,10 +810,10 @@ class BlockedEncoder:
         with profiling.stages(stage_times) as stage:
             stage.next("nbf.enc_device_phase_a")
             f = len(frames)
-            # Global frame offset of this chunk within the stream (type-18
-            # zoom tracking), claimed at BEGIN time in chunk order.
-            g0 = self._zoom_gframe
-            self._zoom_gframe += f
+            # Global frame offset of this chunk within the stream (motion
+            # tracking), claimed at BEGIN time in chunk order.
+            g0 = self._gframe
+            self._gframe += f
             shape = base.shape
             h, w = shape[:2]
             channels = 1 if base.ndim == 2 else shape[2]
@@ -862,18 +851,11 @@ class BlockedEncoder:
                 else:
                     masks, counts_d, vals = _phase_a(stacked, npad=npad, nb=nb)
                 counts = counts_d.cpu().numpy()
-            any_motion = bool(shifts.any())
-            packed_cache: dict = {}
-
-            def packed_row(j):
-                if "packed" not in packed_cache:
-                    with profiling.span("nbf.pull_lazy"):
-                        packed = (_phase_a_packed_motion(stacked, shifts_d,
-                                                         npad=npad)
-                                  if any_motion
-                                  else _phase_a_packed(stacked, npad=npad))
-                        packed_cache["packed"] = packed.cpu().numpy()
-                return packed_cache["packed"][j]
+            packed = (functools.partial(_phase_a_packed_motion, stacked,
+                                        shifts_d, npad=npad)
+                      if shifts.any()
+                      else functools.partial(_phase_a_packed, stacked,
+                                             npad=npad))
 
             stage.next("nbf.enc_param_math")
             kinds, ks, m_arr, fk_arr, thi, tlo, geom = chunk_params(counts, n,
@@ -895,1169 +877,1182 @@ class BlockedEncoder:
             words, wit, wcnt, vseg, vcnt = (
                 t.cpu().numpy() for t in (words_d, wit_d, wcnt_d, vseg_d,
                                           vcnt_d))
-
-        def finish() -> tuple:
-            """HOST phase: section gathering, entropy coding,
-            record assembly.  Runs on pulled numpy arrays (plus
-            rare lazy device pulls for pass-through masks and the
-            per-tile motion search); thread-safe against a
-            concurrent device phase.  Its span (``nbf.finish``) and
-            its stages' spans open on the thread that runs it: under
-            the pipelined schedule a worker, later than the device
-            pull that ended the outer timeline."""
-            with profiling.span("nbf.finish"), \
-                    profiling.stages(stage_times) as stage:
-                return host_phase(stage)
-
-        def host_phase(stage) -> tuple:
-            stage.next("nbf.enc_host_sections")
-            payload_sink: List[bytes] = []
-            keyframes = 0
-            # Zoom-tracking state for this chunk: snapshot the stream
-            # state at first entry (repeat finish() runs of the same
-            # chunk must recompute identical bytes), then advance a
-            # working copy per accepted frame and publish it as the
-            # stream state for the next chunk (finishes run in chunk
-            # order on the callers' single worker).
-            zstate = self._zoom_entry.get(g0)
-            if zstate is None:
-                zstate = dict(self._zoom_state)
-                self._zoom_entry[g0] = zstate
-            zstate = dict(zstate)
-            rstate = self._rot_entry.get(g0)
-            if rstate is None:
-                rstate = dict(self._rot_state)
-                self._rot_entry[g0] = rstate
-            rstate = dict(rstate)
-            zl = self.zlib_level
-            # Value streams and DPCM residuals DEFLATE at level 1 when the
-            # level is defaulted: level 6 buys <1% over level 1 on changed-
-            # pixel bytes at 3-5x the CPU (the host pipeline's hot stage),
-            # and the byte-rANS trial recovers the entropy-side difference.
-            # An explicitly-raised level (>= 7) is honored as stated intent.
-            vlvl = zl if zl >= 7 else 1
-
-            # ---- host section gathering -----------------------------------
-            # Every DEFLATE-able section (value streams, blocked bitmaps,
-            # witness streams, pass-through masks) is collected first and
-            # compressed in ONE native threaded batch (utils/native.py,
-            # num_threads plumbed from the public API) instead of per-record
-            # zlib calls — the host entropy stage is this pipeline's hot
-            # loop once device compute is fast (VERDICT r2 #1/#3).
-            sections: List[bytes] = []
-            sec_level: List[int] = []
-            sec_bits: List[bool] = []
-            vz_idx = [-1] * f
-            bz_idx = [-1] * f
-            wz_idx = [-1] * f
-            res_trials = [[] for _ in range(f)]  # (tag, meta, raw_len, zbytes)
-            val_bytes: List[bytes] = [b""] * f
-            bm_bytes: List[Optional[bytes]] = [None] * f
-            wit_bytes: List[Optional[bytes]] = [None] * f
-            wit_pk: List[Optional[bytes]] = [None] * f  # coding-7 bit pack
-
-            def _add(buf: bytes, lvl: int, bits: bool = False) -> int:
-                sections.append(buf)
-                sec_level.append(lvl)
-                sec_bits.append(bits)
-                return len(sections) - 1
-
-            # One byte histogram per section, shared by every entropy
-            # gate that consumes it (DEFLATE-unwinnable, bit density,
-            # order-0 entropy): the gates were each re-walking the same
-            # few-hundred-KB buffers, a measurable slice of the host
-            # budget at 1080p.
-            hist_cache: dict = {}
-
-            def _hist(key, buf: bytes) -> np.ndarray:
-                h = hist_cache.get(key)
-                if h is None:
-                    h = native.byte_hist(buf)
-                    hist_cache[key] = h
-                return h
-
-            def _bitrans_pred(length: int, ones: int):
-                """(quantized prob, provable floor in bytes) of static
-                binary rANS over a ``length``-byte stream with ``ones``
-                set bits: the coded body cannot land meaningfully below
-                the cross-entropy of the bit density against the
-                quantized model, so callers skip the encode entirely
-                when even the floor loses the section (the skipped
-                trials were pure waste: same final coding choice)."""
-                bits8 = 8 * length
-                prob = min(255, max(1, round(256 * ones / bits8)))
-                q = prob / 256.0
-                pb = ones / bits8
-                hq = 0.0
-                if pb > 0.0:
-                    hq -= pb * math.log2(q)
-                if pb < 1.0:
-                    hq -= (1.0 - pb) * math.log2(1.0 - q)
-                return prob, length * hq + 4.0  # 4-byte state head
-
-            def _residual(j: int, tag: str, meta) -> bytes:
-                """DPCM bytes vs the motion-predicted previous frame — the
-                type-8 trial for dense-mask frames.  ``tag``/``meta``:
-                'int' (dy, dx) integer roll, 'hp' (sy, sx) half-pel
-                bilinear, 'ref' (ref_back, sy, sx) half-pel against an
-                older reference (type-16), 'tile' (ty, tx, 2) per-tile map
-                (fc.tile_predict, type-10), 'tileh' half-pel tile map
-                (type-17), 'zoomg' (ref_back, z_cur, z_ref, dy, dx)
-                two-scale parametric zoom against a reference ref_back
-                frames back (fc.zoom_predict, type-18)."""
-                if tag == "ref":
-                    rb, sy, sx = meta
-                    ref = np.asarray(frames[j - rb] if j >= rb else base,
-                                     np.uint8)
-                    return (np.asarray(frames[j], np.uint8)
-                            - fc.halfpel_predict(ref, sy, sx)).tobytes()
-                if tag == "avg2":
-                    rb2, thr = meta
-                    ref1 = np.asarray(frames[j - 1] if j > 0 else base,
-                                      np.uint8)
-                    ref2 = np.asarray(frames[j - rb2] if j >= rb2
-                                      else base, np.uint8)
-                    return (np.asarray(frames[j], np.uint8)
-                            - fc.avg2_predict(ref1, ref2, thr)).tobytes()
-                if tag == "zoomg":
-                    rb = meta[0]
-                    ref = np.asarray(frames[j - rb] if j >= rb else base,
-                                     np.uint8)
-                    return (np.asarray(frames[j], np.uint8)
-                            - fc.zoom_predict(ref, *meta[1:])).tobytes()
-                if tag == "rotg":
-                    rb = meta[0]
-                    ref = np.asarray(frames[j - rb] if j >= rb else base,
-                                     np.uint8)
-                    return (np.asarray(frames[j], np.uint8)
-                            - fc.rot_predict(ref, *meta[1:])).tobytes()
-                prev_arr = np.asarray(frames[j - 1] if j > 0 else base,
-                                      np.uint8)
-                if tag == "hp":
-                    prev_arr = fc.halfpel_predict(prev_arr, *meta)
-                elif tag == "tile":
-                    prev_arr = fc.tile_predict(prev_arr, meta, tlog)
-                elif tag == "tileh":
-                    prev_arr = fc.tile_predict_hp(prev_arr, meta, tlog)
-                elif meta != (0, 0):
-                    prev_arr = np.roll(np.roll(prev_arr, meta[0], axis=0),
-                                       meta[1], axis=1)
-                return (np.asarray(frames[j], np.uint8)
-                        - prev_arr).tobytes()
-
-            tile_cache: dict = {}
-
-            def tile_shifts_row(j: int) -> Optional[np.ndarray]:
-                """Per-tile shift map for frame j (lazy: ONE device search
-                per chunk, pulled as a tiny (F, ty, tx, 3) summary)."""
-                if "s" not in tile_cache:
-                    with profiling.span("nbf.pull_lazy"):
-                        tile_cache["s"] = _tile_motion_best(
-                            stacked, tlog=tlog, stride=stride).cpu().numpy()
-                return choose_tile_shifts(tile_cache["s"][j])
-
-            def _res_candidates(j: int):
-                """Prediction candidates for the residual trials, as
-                (tag, meta) pairs: the accepted mask shift, the
-                unconditional search argmin, the per-tile map (when any
-                tile clears its margin — zoom/rotation content), and — when
-                real global motion is present on direct uint8 content — the
-                best half-pel refinement around the argmin (a fractional
-                pan re-mixes every pixel, so the integer-roll residual is
-                large while the bilinear half-pel residual is near-noise).
-                Every candidate competes by final record size only."""
-                kind = kinds[j]
-                cands = [("int", (int(shifts[j, 0]), int(shifts[j, 1])))]
-                by, bx = int(best_shifts[j, 0]), int(best_shifts[j, 1])
-                if ("int", (by, bx)) not in cands:
-                    cands.append(("int", (by, bx)))
-                if byte_view or not self.motion:
-                    return cands
-                tsh = None
-                if min(h, w) >= (1 << tlog):
-                    tsh = tile_shifts_row(j)
-                    if tsh is not None and tsh.any():
-                        cands.append(("tile", tsh))
-                if (by == 0 and bx == 0
-                        and kinds[j] not in ("key", "pass")
-                        and (tsh is None or not tsh.any())):
-                    # zero integer argmin on a bloom-cheap frame: sub-
-                    # half-pixel motion cannot be what made the mask
-                    # cheap, so skip the half-pel probes.  Dense (key)
-                    # AND pass-through-dense frames DO probe from zero:
-                    # slow pans/zooms (< 0.5 px/frame at the edges, e.g.
-                    # chroma planes at half the luma rate) round to
-                    # integer zero while a half-pel or parametric-zoom
-                    # prediction collapses the residual — these frames
-                    # were about to pay a keyframe- or pass-through-
-                    # sized record, which dwarfs the probe cost.
-                    return cands
-                curr = np.asarray(frames[j], np.uint8)
-                prev_arr = np.asarray(frames[j - 1] if j > 0 else base,
-                                      np.uint8)
-                sub = (slice(None, None, stride),
-                       slice(None, None, stride))
-                curr_sub = curr[sub].astype(np.int16)
-                ys = np.arange(0, h, stride)
-                xs = np.arange(0, w, stride)
-
-                # conditional two-reference average (type 19): on static
-                # scenes under sensor grain, averaging two references
-                # where they agree halves the reference-side noise the
-                # DPCM residual must code (1.5 sigma^2 vs 2 sigma^2 —
-                # ~0.2 bits/sample); the agreement threshold keeps
-                # moving content (where blending ghosts) on plain DPCM.
-                # Threshold picked by subsampled wrap-aware SAD; the
-                # candidate only enters when it beats the plain
-                # previous-frame diff on that grid.
-                if j >= 1:
-                    ref2 = np.asarray(frames[j - 2] if j >= 2 else base,
-                                      np.uint8)
-                    p16 = prev_arr[sub].astype(np.int16)
-                    r16 = ref2[sub].astype(np.int16)
-                    agree = np.abs(p16 - r16)
-                    avg = (p16 + r16 + 1) >> 1
-                    d0 = (curr_sub - p16) & 0xFF
-                    prev_sad = int(np.minimum(d0, 256 - d0).sum())
-                    best_t, best_sad = 0, prev_sad
-                    for thr in (8, 16, 32):
-                        pa = np.where(agree <= thr, avg, p16)
-                        d = (curr_sub - pa) & 0xFF
-                        s = int(np.minimum(d, 256 - d).sum())
-                        if s < best_sad:
-                            best_t, best_sad = thr, s
-                    if best_t and best_sad < 0.995 * prev_sad:
-                        cands.append(("avg2", (2, best_t)))
-
-                def _hp_sad(ref: np.ndarray, sy: int, sx: int) -> int:
-                    """Wrap-aware subsampled SAD of the half-pel
-                    prediction: |curr - pred| mod 256 with ±128 folding
-                    tracks DPCM coded size far better than changed-pixel
-                    count on fractional-motion content (bilinear leaves
-                    near-zero but nonzero error everywhere).  Gathers
-                    ONLY the stride-grid samples with roll (wrap)
-                    indexing — value-identical to subsampling the full
-                    fc.halfpel_predict at 1/stride^2 the work (the probe
-                    loop's full-frame predictions were the encode host
-                    stage's largest cost at 1080p)."""
-                    iy, fy = sy >> 1, sy & 1
-                    ix, fx = sx >> 1, sx & 1
-                    r0 = (ys - iy) % h
-                    c0 = (xs - ix) % w
-                    p00 = ref[r0[:, None], c0[None, :]].astype(np.uint16)
-                    if fy:
-                        r1 = (ys - iy - 1) % h
-                        p10 = ref[r1[:, None], c0[None, :]]
-                    if fx:
-                        c1 = (xs - ix - 1) % w
-                        p01 = ref[r0[:, None], c1[None, :]]
-                    if fy and fx:
-                        s = (p00 + p10 + p01 + ref[r1[:, None],
-                                                   c1[None, :]] + 2) >> 2
-                    elif fy:
-                        s = (p00 + p10 + 1) >> 1
-                    elif fx:
-                        s = (p00 + p01 + 1) >> 1
-                    else:
-                        s = p00
-                    d = (curr_sub - s.astype(np.int16)) & 0xFF
-                    return int(np.minimum(d, 256 - d).sum())
-
-                # per-tile HALF-PEL refinement (type 17): fractional
-                # motion that VARIES across the frame (zoom/rotation
-                # fields) lands between integer phases per tile; refine
-                # each accepted tile shift to its best half-pel phase.
-                # Dense frames with an all-zero integer map still probe —
-                # slow zooms move <0.5 px/frame at the edges yet change
-                # every pixel.
-                if tsh is not None and (tsh.any() or kind == "key"):
-                    thm = _tile_hp_refine(prev_arr, curr, tsh, tlog,
-                                          stride)
-                    if thm is not None:
-                        cands.append(("tileh", thm))
-
-                def _zoom_sad(ref: np.ndarray, zc: int, zr: int,
-                              dyc: int, dxc: int):
-                    """Stride-grid (SAD, changed-count) of the type-18
-                    two-scale zoom prediction — same index math as
-                    fc.zoom_predict, gathered only at the grid points.
-                    Both metrics matter: a slow zoom's plain diff on
-                    smooth texture changes ~70% of pixels at TINY
-                    amplitudes (low SAD), while an exact zoom
-                    prediction leaves few but larger errors (moving
-                    objects) — SAD alone would keep the wrong one."""
-                    sc = 1.0 + zc * 1e-6
-                    cy0, cx0 = h / 2.0, w / 2.0
-                    my = np.floor((ys - cy0) / sc + cy0)
-                    mx = np.floor((xs - cx0) / sc + cx0)
-                    if zr:
-                        sb = 1.0 + zr * 1e-6
-                        my = np.ceil(cy0 + (my - cy0) * sb)
-                        mx = np.ceil(cx0 + (mx - cx0) * sb)
-                    r = np.clip(my.astype(np.int64) - dyc, 0, h - 1)
-                    c2 = np.clip(mx.astype(np.int64) - dxc, 0, w - 1)
-                    pred = ref[r[:, None], c2[None, :]].astype(np.int16)
-                    d = (curr_sub - pred) & 0xFF
-                    return (int(np.minimum(d, 256 - d).sum()),
-                            int(np.count_nonzero(d)))
-
-                def _zoom_score(sc_pair) -> int:
-                    """Scalar rank of a (SAD, changed-count) pair: each
-                    changed pixel pays entropy bits on top of its
-                    amplitude, so count carries byte-like weight."""
-                    return sc_pair[0] + 4 * sc_pair[1]
-
-                # One-edge-pixel scale quantum: the gathered map is
-                # PIECEWISE CONSTANT in z (a pixel at distance d from
-                # the centre changes its source index every ~1e6/d
-                # ppm), so descent steps below the edge quantum land on
-                # plateaus and stall — the walk must stride at least
-                # one plateau per step.
-                zquant = max(16, int(1e6 / max(1, max(h, w) // 2)))
-
-                def _zoom_refine(ref, zr, zc0, dyc, dxc):
-                    """Coarse-to-fine 1-D descent on z_cur (z_ref fixed
-                    — for warm anchors it is known from the tracked
-                    state), with plateau-aware steps from 4x the edge
-                    quantum down to a quarter of it.  The score valley
-                    at the true scale is deep (one edge pixel of scale
-                    error doubles the residual) and a few quanta wide,
-                    so the walk locks on in ~20-40 evals."""
-                    best_z = zc0
-                    best_p = _zoom_sad(ref, zc0, zr, dyc, dxc)
-                    best_c = _zoom_score(best_p)
-                    step = 4 * zquant
-                    evals = 0
-                    while step >= max(8, zquant // 4) and evals < 128:
-                        moved = True
-                        while moved and evals < 128:
-                            moved = False
-                            for cand in (best_z - step, best_z + step):
-                                if abs(cand) > 500_000:
-                                    continue
-                                p = _zoom_sad(ref, cand, zr, dyc, dxc)
-                                evals += 1
-                                c = _zoom_score(p)
-                                if c < best_c:
-                                    best_c, best_z, best_p = c, cand, p
-                                    moved = True
-                        step >>= 1
-                    return best_z, best_p
-
-                # parametric zoom probe (type 18): a radial shift field
-                # varies continuously with radius — the per-tile map can
-                # only quantize it, leaving mixed-rounding seams inside
-                # every tile.  FIXED-ANCHOR tracking: a slow zoom's
-                # per-frame scale step is UNIDENTIFIABLE at short range
-                # (any z with edge shift under a pixel quantizes to the
-                # same map), so advancing the anchor every frame locks
-                # in a wrong absolute scale and poisons the two-scale
-                # requantization.  Instead the anchor frame stays PINNED
-                # — its latent scale is trustworthy (0 at the zoom's
-                # onset: the pre-zoom frame IS the latent grid) — and
-                # identifiability grows with distance as the cumulative
-                # relative zoom leaves the sub-pixel regime.  The
-                # anchor re-pins to the accepted frame at the chunk's
-                # last frame (the only frame the next chunk can still
-                # reach as its base) or when rb nears the 15-frame
-                # format bound, by which point its z_cur is
-                # well-identified.  A COLD probe (no reachable anchor)
-                # sweeps single-scale against the previous frame from
-                # the tile-map radial fit or, on dense/pass frames, a
-                # small geometric grid.  Candidates compete by final
-                # record size; SAD acceptance gates the trial.
-                zfit = _zoom_fit(tsh, tlog, h, w) if tsh is not None \
-                    else 0.0
-                gj = g0 + j
-                warm = ("gidx" in zstate
-                        and 1 <= gj - zstate["gidx"] <= 15
-                        and j - (gj - zstate["gidx"]) >= -1)
-                probes = []   # (rb, z_ref, [z_cur seeds])
-                if warm:
-                    rb0 = gj - zstate["gidx"]
-                    zr0 = zstate["abs"]
-                    # The tracked per-frame rate plus a geometric grid
-                    # scaled by the anchor distance: early in a zoom the
-                    # rate estimate is unidentifiable (every sub-pixel
-                    # scale quantizes to the same map, so the SAD
-                    # surface is a plateau the descent cannot cross) —
-                    # a 2x-spaced grid always lands one seed inside the
-                    # deep valley around the true cumulative scale.
-                    seeds = [int(round(zr0 + zstate.get("rel", 0.0)
-                                       * rb0))]
-                    if abs(zfit) > 2.0 / max(h, w):
-                        seeds.append(int(round(
-                            zr0 + zfit * 1e6 / (1.0 - zfit) * rb0)))
-                    for zrate in (500, 1000, 2000, 4000, 8000, 16000):
-                        for sgn in (1, -1):
-                            zp = zr0 + sgn * zrate * rb0
-                            if zp not in seeds:
-                                seeds.append(zp)
-                    # the format bounds |z| <= 5e5 ppm; the tracked-rate
-                    # and fit seeds extrapolated by the anchor distance
-                    # can overshoot it (the refine clamps its steps, but
-                    # a start outside the range would survive to the
-                    # wrap and raise)
-                    seeds = [z for z in seeds if abs(z) <= 500_000]
-                    if seeds:
-                        probes.append((rb0, zr0, seeds))
-                else:
-                    # cold single-scale probe vs prev: the previous
-                    # frame is assumed to BE the latent grid (true at a
-                    # zoom's onset; mid-zoom cold starts fail the SAD
-                    # gate and stay cold)
-                    if abs(zfit) > 2.0 / max(h, w):
-                        zcands = [zfit * m
-                                  for m in (0.7, 0.85, 1.0, 1.15, 1.3)]
-                    elif kind in ("key", "pass"):
-                        # dense AND pass-through-dense frames sweep the
-                        # geometric grid: a slow zoom changes 30-50% of
-                        # pixels (pass territory) while every tile
-                        # shift stays sub-pixel, so neither the tile
-                        # map nor the argmin hints at it
-                        zcands = [sgn * z
-                                  for z in (0.0005, 0.001, 0.002,
-                                            0.004, 0.008, 0.016)
-                                  for sgn in (1, -1)]
-                    else:
-                        zcands = []
-                    seeds = []
-                    for z in zcands:
-                        zp = int(round(z * 1e6 / (1.0 - z)))
-                        if zp and abs(zp) <= 500_000:
-                            seeds.append(zp)
-                    if seeds:
-                        probes.append((1, 0, seeds))
-                if probes:
-                    p0 = _zoom_sad(prev_arr, 0, 0, by, bx)
-                    if os.environ.get("NBF_DEBUG_ZOOM"):
-                        print(f"[zoom] j={j} kind={kind} warm={warm} "
-                              f"probes={[(p[0], p[1], p[2]) for p in probes]} "
-                              f"base={p0}", flush=True)
-                    # Seed pass: score every (probe, seed, translation)
-                    # cheaply, then run ONE descent from the single
-                    # best start — refining from seeds outside the
-                    # valley just walks plateaus for nothing (the probe
-                    # stage is per-frame host work; at 1080p each eval
-                    # is a 32k-point gather).
-                    dyxs = [(by, bx)]
-                    if (by, bx) != (0, 0):
-                        dyxs.append((0, 0))
-                    start = None  # (score, probe-idx, ref, seed, dyx)
-                    refs = []
-                    for rb0, zr0, seeds in probes:
-                        ref0 = np.asarray(
-                            frames[j - rb0] if j >= rb0 else base,
-                            np.uint8)
-                        refs.append(ref0)
-                        for dyx in dyxs:
-                            for zp in seeds:
-                                c = _zoom_score(
-                                    _zoom_sad(ref0, zp, zr0, *dyx))
-                                if start is None or c < start[0]:
-                                    start = (c, len(refs) - 1, zp, dyx)
-                    best = None   # ((sad, cnt), rb, z_cur, z_ref, dy, dx)
-                    if start is not None:
-                        _, pi, sd, dyx = start
-                        rb0, zr0, _ = probes[pi]
-                        zc1, p1 = _zoom_refine(refs[pi], zr0, sd, *dyx)
-                        best = (p1, rb0, zc1, zr0, *dyx)
-                    if os.environ.get("NBF_DEBUG_ZOOM"):
-                        print(f"[zoom] j={j} best={best}", flush=True)
-                    # dual gate: enter the record trials when the
-                    # prediction wins on the amplitude-weighted score
-                    # OR collapses the changed-pixel count — a zoom-
-                    # exact prediction concentrates few large errors
-                    # (moving objects) where the plain diff smears tiny
-                    # errors everywhere, and either shape can be the
-                    # cheaper record (the trials decide by bytes).
-                    if best is not None and (
-                            _zoom_score(best[0]) < 0.995 * _zoom_score(p0)
-                            or best[0][1] < 0.7 * p0[1]):
-                        _, rb0, zc1, zr0, dyc, dxc = best
-                        cands.append(("zoomg",
-                                      (rb0, zc1, zr0, dyc, dxc)))
-                        zstate["rel"] = (zc1 - zr0) / rb0
-                        if warm:
-                            if j == f - 1 or rb0 >= 12:
-                                # re-pin (see block comment)
-                                zstate["gidx"] = gj
-                                zstate["abs"] = zc1
-                        else:
-                            # cold lock: pin the anchor at the previous
-                            # frame (latent scale 0) — unless this IS
-                            # the chunk's last frame, where only the
-                            # frame itself survives as the next
-                            # chunk's base
-                            if j == f - 1:
-                                zstate["gidx"] = gj
-                                zstate["abs"] = zc1
-                            else:
-                                zstate["gidx"] = gj - 1
-                                zstate["abs"] = zr0
-                # parametric rotation probe (type 20): a rotation's
-                # shift field varies with radius AND direction — the
-                # tile map quantizes it into mixed-rounding seams.
-                # Same anchored two-parameter tracking as the zoom
-                # probe above: the anchor frame's absolute latent angle
-                # stays PINNED (composing two nearest-neighbour
-                # resamplings through a single relative angle
-                # mispredicts many pixels mid-rotation), warm seeds
-                # come from the tracked rate plus an aquant-scaled grid
-                # by anchor distance, and a cold start anchors the
-                # previous frame at latent angle 0 (exact at a
-                # rotation's onset).  Candidates compete by final
-                # record size; SAD acceptance gates the trial.
-                rfit = _rot_fit(tsh, tlog, h, w) if tsh is not None \
-                    else 0.0
-                max_rad = max(h, w) / 2.0
-                aquant = max(16, int(round(1e6 / max_rad)))
-                zoom_added = any(t == "zoomg" for t, _ in cands)
-                rwarm = ("gidx" in rstate
-                         and 1 <= gj - rstate["gidx"] <= 15
-                         and j - (gj - rstate["gidx"]) >= -1)
-                rprobes = []   # (rb, a_ref, [a_cur seeds])
-                if rwarm:
-                    rb0 = gj - rstate["gidx"]
-                    ar0 = rstate["abs"]
-                    seeds = [int(round(ar0 + rstate.get("rel", 0.0)
-                                       * rb0))]
-                    if abs(rfit) * max_rad > 2.0:
-                        for sgn in (1, -1):
-                            seeds.append(int(round(
-                                ar0 + sgn * rfit * 1e6 * rb0)))
-                    for m_ in (1, 2, 4, 8, 16):
-                        for sgn in (1, -1):
-                            ap = ar0 + sgn * m_ * aquant * rb0
-                            if ap not in seeds:
-                                seeds.append(ap)
-                    # the format bounds |angle| <= 1e6 urad; a tracked
-                    # rate extrapolated by the anchor distance can
-                    # overshoot it
-                    seeds = [a for a in seeds if abs(a) <= 1_000_000]
-                    if seeds:
-                        rprobes.append((rb0, ar0, seeds))
-                else:
-                    if abs(rfit) * max_rad > 2.0:
-                        seeds = [int(round(sgn * rfit * 1e6 * m_))
-                                 for m_ in (0.7, 0.85, 1.0, 1.15, 1.3)
-                                 for sgn in (1, -1)]
-                        seeds = [a for a in seeds
-                                 if 0 < abs(a) <= 1_000_000]
-                    elif kind in ("key", "pass") and not zoom_added:
-                        seeds = [sgn * m_ * aquant
-                                 for m_ in (1, 2, 4, 8, 16)
-                                 for sgn in (1, -1)
-                                 if m_ * aquant <= 1_000_000]
-                    else:
-                        seeds = []
-                    if seeds:
-                        rprobes.append((1, 0, seeds))
-                if rprobes:
-                    cy0, cx0 = h / 2.0, w / 2.0
-                    yf = ys.astype(np.float64) - cy0
-                    xf = xs.astype(np.float64) - cx0
-
-                    def _rot_sad(ref, a_cur, a_ref, dyc, dxc):
-                        """Stride-grid (SAD, changed-count) of the
-                        type-20 two-angle prediction — same index math
-                        as fc.rot_predict, gathered at the grid."""
-                        th2 = a_cur * 1e-6
-                        co, si = math.cos(th2), math.sin(th2)
-                        my = np.floor(cy0 + yf[:, None] * co
-                                      - xf[None, :] * si)
-                        mx = np.floor(cx0 + yf[:, None] * si
-                                      + xf[None, :] * co)
-                        if a_ref:
-                            tr = -a_ref * 1e-6
-                            c1, s1 = math.cos(tr), math.sin(tr)
-                            uy = my + 0.5 - cy0
-                            ux = mx + 0.5 - cx0
-                            my = np.floor(cy0 + uy * c1 - ux * s1)
-                            mx = np.floor(cx0 + uy * s1 + ux * c1)
-                        ry = my.astype(np.int64) - dyc
-                        rx = mx.astype(np.int64) - dxc
-                        np.clip(ry, 0, h - 1, out=ry)
-                        np.clip(rx, 0, w - 1, out=rx)
-                        pred = ref[ry, rx].astype(np.int16)
-                        d = (curr_sub - pred) & 0xFF
-                        return (int(np.minimum(d, 256 - d).sum()),
-                                int(np.count_nonzero(d)))
-
-                    p0r = _rot_sad(prev_arr, 0, 0, 0, 0)
-                    dyxs_r = [(by, bx)]
-                    if (by, bx) != (0, 0):
-                        dyxs_r.append((0, 0))
-                    start = None   # (score, probe-idx, seed, dyx)
-                    rrefs = []
-                    for rb0, ar0, seeds in rprobes:
-                        ref0 = np.asarray(
-                            frames[j - rb0] if j >= rb0 else base,
-                            np.uint8)
-                        rrefs.append(ref0)
-                        for dyx in dyxs_r:
-                            for a in seeds:
-                                cst = _zoom_score(
-                                    _rot_sad(ref0, a, ar0, *dyx))
-                                if start is None or cst < start[0]:
-                                    start = (cst, len(rrefs) - 1, a,
-                                             dyx)
-                    rbest = None  # ((sad, cnt), rb, a_cur, a_ref, dy, dx)
-                    if start is not None:
-                        _, pi, a_best, dyx = start
-                        rb0, ar0, _ = rprobes[pi]
-                        ref0 = rrefs[pi]
-                        best_p = _rot_sad(ref0, a_best, ar0, *dyx)
-                        best_c = _zoom_score(best_p)
-                        step = 4 * aquant
-                        evals = 0
-                        while (step >= max(8, aquant // 4)
-                               and evals < 96):
-                            moved = True
-                            while moved and evals < 96:
-                                moved = False
-                                for cand in (a_best - step,
-                                             a_best + step):
-                                    if abs(cand) > 1_000_000:
-                                        continue
-                                    pp = _rot_sad(ref0, cand, ar0,
-                                                  *dyx)
-                                    evals += 1
-                                    cc = _zoom_score(pp)
-                                    if cc < best_c:
-                                        best_c, a_best, best_p = (
-                                            cc, cand, pp)
-                                        moved = True
-                            step >>= 1
-                        rbest = (best_p, rb0, a_best, ar0, *dyx)
-                    if rbest is not None and (a_best - ar0) and (
-                            _zoom_score(rbest[0])
-                            < 0.995 * _zoom_score(p0r)
-                            or rbest[0][1] < 0.7 * p0r[1]):
-                        _, rb0, ac1, ar0, dyc, dxc = rbest
-                        cands.append(("rotg",
-                                      (rb0, ac1, ar0, dyc, dxc)))
-                        rstate["rel"] = (ac1 - ar0) / rb0
-                        if rwarm:
-                            if j == f - 1 or rb0 >= 12:
-                                rstate["gidx"] = gj
-                                rstate["abs"] = ac1
-                        else:
-                            if j == f - 1:
-                                rstate["gidx"] = gj
-                                rstate["abs"] = ac1
-                            else:
-                                rstate["gidx"] = gj - 1
-                                rstate["abs"] = ar0
-
-                if by == 0 and bx == 0 and kinds[j] != "key":
-                    # non-dense frame with zero global argmin: the tile
-                    # map (if any) was the only sub-pel story; the global
-                    # half-pel/multi-ref probes below can't beat a mask
-                    # the integer diff already made cheap.
-                    return cands
-
-                if kind == "key" and by == 0 and bx == 0:
-                    # Interpolated motion (a real camera pan) changes EVERY
-                    # pixel, so the changed-pixel count the device search
-                    # minimizes is flat across shifts and its argmin is
-                    # noise — the sub-pel probes below would anchor at
-                    # (0, 0) and miss the true shift entirely (the frames
-                    # then pay full keyframes).  A coarse wrap-aware
-                    # integer SAD search over +-3 px re-anchors them; the
-                    # subsampled gather keeps it a few ms even at 1080p,
-                    # and it only runs on dense frames whose alternative
-                    # is a keyframe-sized record.
-                    best_i = None
-                    for iy in range(-3, 4):
-                        for ix in range(-3, 4):
-                            ps = prev_arr[(ys - iy) % h][:, (xs - ix) % w]
-                            d = (curr_sub - ps) & 0xFF
-                            c = int(np.minimum(d, 256 - d).sum())
-                            if best_i is None or c < best_i:
-                                best_i, by, bx = c, iy, ix
-                    if (by, bx) != (0, 0) and ("int", (by, bx)) not in cands:
-                        cands.append(("int", (by, bx)))
-
-                int_sad = None
-                best_c, best_s = None, None
-                hp_grid = np.zeros((3, 3))
-                for oy in (-1, 0, 1):
-                    for ox in (-1, 0, 1):
-                        sy, sx = 2 * by + oy, 2 * bx + ox
-                        c = _hp_sad(prev_arr, sy, sx)
-                        hp_grid[oy + 1, ox + 1] = c
-                        if oy == 0 and ox == 0:
-                            int_sad = c
-                        elif best_c is None or c < best_c:
-                            best_c, best_s = c, (sy, sx)
-                if best_c is not None and best_c < 0.995 * int_sad:
-                    cands.append(("hp", best_s))
-
-                def _vertex(vm, v0, vp):
-                    """Sub-sample offset of the parabola through three
-                    equally-spaced SAD samples, clamped to [-1, 1]."""
-                    den = vm - 2 * v0 + vp
-                    if den <= 0:
-                        return float(np.argmin([vm, v0, vp]) - 1)
-                    return float(np.clip(0.5 * (vm - vp) / den, -1, 1))
-
-                # QUARTER-pel per-frame motion estimate from the 3x3
-                # half-pel SAD grid (separable parabolic fit): the true
-                # fractional shift lands between half-pel samples; the
-                # vertex recovers it to ~1/4 pel, which is what anchors
-                # the multi-reference probes correctly below.
-                est_y = 2 * by + _vertex(hp_grid[0, 1], hp_grid[1, 1],
-                                         hp_grid[2, 1])
-                est_x = 2 * bx + _vertex(hp_grid[1, 0], hp_grid[1, 1],
-                                         hp_grid[1, 2])
-                # multi-reference probes (type 16): sub-half-pel motion
-                # (fractional pans; chroma planes pan at half the luma
-                # rate) lands BETWEEN half-pel phases frame-to-frame, but
-                # rb frames back the phase step multiplies back onto the
-                # grid and the bilinear prediction matches — the frames
-                # that were keyframing despite the half-pel search (60% of
-                # the pan_subpixel stream's bytes).  Probes center on
-                # rb * (quarter-pel estimate): scaling the INTEGER argmin
-                # instead (2*rb*by) compounds its up-to-half-pel error by
-                # rb and misses the matching phase entirely (e.g. a
-                # 1.25 px/frame pan: true rb=4 shift is 10 half-pels,
-                # 2*rb*by anchors at 8).
-                for rb in (2, 4, 8):
-                    if j < rb - 1:
-                        continue
-                    ref = np.asarray(frames[j - rb] if j >= rb else base,
-                                     np.uint8)
-                    cy = int(round(rb * est_y))
-                    cx = int(round(rb * est_x))
-                    # Separable coordinate descent (2 rounds, ±3 sweeps)
-                    # from the anchor: the quarter-pel estimate's error
-                    # compounds by rb (a 0.38 half-pel bias is 3 half-pels
-                    # off at rb=8), so a fixed ±1 grid around rb*est
-                    # misses the exactly-matching phase; the descent
-                    # walks to it (SAD collapses at the true phase, so
-                    # the valley is steep and 1-D sweeps find it).
-                    best2_s = (cy, cx)
-                    best2_c = _hp_sad(ref, cy, cx)
-                    for _ in range(2):
-                        improved = False
-                        sy0, sx0 = best2_s
-                        for sy in range(sy0 - 3, sy0 + 4):
-                            if sy == sy0:
-                                continue
-                            c = _hp_sad(ref, sy, sx0)
-                            if c < best2_c:
-                                best2_c, best2_s = c, (sy, sx0)
-                                improved = True
-                        sy0, sx0 = best2_s
-                        for sx in range(sx0 - 3, sx0 + 4):
-                            if sx == sx0:
-                                continue
-                            c = _hp_sad(ref, sy0, sx)
-                            if c < best2_c:
-                                best2_c, best2_s = c, (sy0, sx)
-                                improved = True
-                        if not improved:
-                            break
-                    if best2_c < 0.995 * int_sad:
-                        cands.append(("ref", (rb, *best2_s)))
-                return cands
+        chunk = HostChunk(
+            frames=frames, base=base, keyframe_fn=keyframe_fn,
+            byte_view=byte_view, motion=self.motion, h=h, w=w,
+            channels=channels, nb=nb, g0=g0, tlog=tlog, stride=stride,
+            kinds=kinds, ks=ks, m_arr=m_arr, words=words, wit=wit,
+            wcnt=wcnt, vseg=vseg, vcnt=vcnt, shifts=shifts,
+            best_shifts=best_shifts, frame_counts=frame_counts,
+            packed=_LazyPull(packed),
+            tile_summary=_LazyPull(functools.partial(
+                _tile_motion_best, stacked, tlog=tlog, stride=stride)),
+            zlib_level=self.zlib_level, num_threads=self.num_threads)
+        return functools.partial(finish_chunk, chunk, self._zoom, self._rot,
+                                 stage_times)
 
 
+# ---------------------------------------------------------------------------
+# The encoder's HOST phase: finish_chunk and its stages (gather_sections,
+# deflate_sections, residual_trials a group of frames, assemble_records),
+# over one chunk's pulled arrays
+# ---------------------------------------------------------------------------
 
-            for j in range(f):
-                kind = kinds[j]
-                if kind in ("empty", "sparse"):
+class _LazyPull:
+    """A device result of one chunk that only some records need: pulled
+    on first use (span ``nbf.pull_lazy``), once a chunk, and kept."""
+
+    def __init__(self, compute):
+        self._compute = compute
+        self._host = None
+
+    def __call__(self) -> np.ndarray:
+        if self._host is None:
+            with profiling.span("nbf.pull_lazy"):
+                self._host = self._compute().cpu().numpy()
+        return self._host
+
+
+@dataclasses.dataclass
+class HostChunk:
+    """The host phase's input for one chunk: its frames, what its device
+    phase pulled, and two device results pulled on first use."""
+    frames: list
+    base: np.ndarray
+    keyframe_fn: Optional[Callable[[int], bytes]]
+    byte_view: bool
+    motion: bool             # the encoder searches global motion
+    h: int
+    w: int
+    channels: int
+    nb: int
+    g0: int                  # global frame offset of frames[0]
+    tlog: int                # tile side (log2) of the per-tile trials
+    stride: int              # count grid of the motion searches and probes
+    kinds: List[str]         # chunk_params' record kind of every frame
+    ks: np.ndarray
+    m_arr: np.ndarray
+    words: np.ndarray        # K1's outputs (F, NB, ...)
+    wit: np.ndarray
+    wcnt: np.ndarray
+    vseg: np.ndarray
+    vcnt: np.ndarray
+    shifts: np.ndarray       # (F, 2) accepted global shifts
+    best_shifts: np.ndarray  # (F, 2) the search's argmin
+    frame_counts: np.ndarray
+    packed: _LazyPull        # (F, npad // 8) packbits(diff mask)
+    tile_summary: _LazyPull  # (F, ty, tx, 3) _tile_motion_best
+    zlib_level: int
+    num_threads: int
+
+    @property
+    def f(self) -> int:
+        return len(self.frames)
+
+    @property
+    def n(self) -> int:
+        return self.h * self.w
+
+    @property
+    def vlvl(self) -> int:
+        # Value streams and DPCM residuals DEFLATE at level 1 when the
+        # level is defaulted: level 6 buys <1% over level 1 on changed-
+        # pixel bytes at 3-5x the CPU (the host pipeline's hot stage),
+        # and the byte-rANS trial recovers the entropy-side difference.
+        # An explicitly-raised level (>= 7) is honored as stated intent.
+        return self.zlib_level if self.zlib_level >= 7 else 1
+
+
+class MotionTrack:
+    """Cross-chunk tracking of one parametric motion probe (the type-18
+    zoom or the type-20 rotation): the stream's state after the last
+    finished chunk, each chunk's entry snapshot keyed by its global
+    frame offset (repeat host phases of a chunk must recompute identical
+    bytes), and the working copy a host phase advances and publishes for
+    the next chunk (host phases run in chunk order on the callers'
+    single worker).  The state: ``gidx``, the global index of the
+    anchor frame; ``abs``, its latent parameter; ``rel``, the tracked
+    rate a frame."""
+
+    def __init__(self):
+        self.stream: dict = {}
+        self.entry: Dict[int, dict] = {}
+        self.work: dict = {}
+
+    def enter(self, g0: int) -> None:
+        snap = self.entry.get(g0)
+        if snap is None:
+            snap = self.entry[g0] = dict(self.stream)
+        self.work = dict(snap)
+
+    def warm(self, fv: "FrameView") -> bool:
+        """The anchor is reachable from frame ``fv``: at most 15 frames
+        back (the format's bound), and in this chunk or its base."""
+        s = self.work
+        return ("gidx" in s and 1 <= fv.gj - s["gidx"] <= 15
+                and fv.j - (fv.gj - s["gidx"]) >= -1)
+
+    def accept(self, warm: bool, fv: "FrameView", rb: int, cur: int,
+               ref: int) -> None:
+        """Advance past frame ``fv``'s accepted prediction (``cur`` for
+        the frame, ``ref`` for the anchor ``rb`` back)."""
+        s = self.work
+        s["rel"] = (cur - ref) / rb
+        if fv.last or (warm and rb >= 12):
+            # re-pin at the chunk's last frame (the only frame the next
+            # chunk can still reach as its base) or when rb nears the
+            # format bound
+            s["gidx"], s["abs"] = fv.gj, cur
+        elif not warm:
+            # cold lock: pin the anchor at the previous frame (latent
+            # scale 0)
+            s["gidx"], s["abs"] = fv.gj - 1, ref
+
+    def publish(self) -> None:
+        self.stream = dict(self.work)
+
+
+class ChunkSections:
+    """A chunk's DEFLATE-able sections (value streams, blocked bitmaps,
+    witness streams, pass-through masks) and, by frame, their indices
+    and bytes, the bit-packed witness and the residual trials."""
+
+    def __init__(self, f: int):
+        self.bufs: List[bytes] = []
+        self.level: List[int] = []
+        self.bits: List[bool] = []
+        self.zsecs: List[bytes] = []
+        # One byte histogram per section, shared by every entropy
+        # gate that consumes it (DEFLATE-unwinnable, bit density,
+        # order-0 entropy): the gates were each re-walking the same
+        # few-hundred-KB buffers, a measurable slice of the host
+        # budget at 1080p.
+        self.hists: dict = {}
+        self.vz = [-1] * f
+        self.bz = [-1] * f
+        self.wz = [-1] * f
+        self.val: List[bytes] = [b""] * f
+        self.bm: List[Optional[bytes]] = [None] * f
+        self.wit: List[Optional[bytes]] = [None] * f
+        self.wit_pk: List[Optional[bytes]] = [None] * f  # coding-7 bit pack
+        self.res_trials = [[] for _ in range(f)]  # (tag, meta, record)
+
+    def add(self, buf: bytes, lvl: int, bits: bool = False) -> int:
+        self.bufs.append(buf)
+        self.level.append(lvl)
+        self.bits.append(bits)
+        return len(self.bufs) - 1
+
+    def hist(self, key, buf: bytes) -> np.ndarray:
+        h = self.hists.get(key)
+        if h is None:
+            h = self.hists[key] = native.byte_hist(buf)
+        return h
+
+
+def finish_chunk(chunk: HostChunk, zoom: MotionTrack, rot: MotionTrack,
+                 stage_times: Optional[dict] = None) -> tuple:
+    """HOST phase of a chunk encode: section gathering, entropy coding,
+    residual trials, record assembly; returns ``(payloads, keyframes)``.
+    Runs on pulled numpy arrays (plus rare lazy device pulls for
+    pass-through masks and the per-tile motion search); thread-safe
+    against a concurrent device phase.  Its span (``nbf.finish``) and
+    its stages' spans open on the thread that runs it: under the
+    pipelined schedule a worker, later than the device pull that ended
+    the outer timeline."""
+    with profiling.span("nbf.finish"), \
+            profiling.stages(stage_times) as stage:
+        stage.next("nbf.enc_host_sections")
+        zoom.enter(chunk.g0)
+        rot.enter(chunk.g0)
+        secs = gather_sections(chunk)
+        stage.next("nbf.enc_deflate")
+        deflate_sections(chunk, secs)
+        # DPCM residual trials (dense/pass frames), gathered and DEFLATE'd
+        # in sub-batches of ~48 MB of raw bytes: grainy 1080p chunks would
+        # otherwise buffer two full-frame residuals per frame for the
+        # whole chunk (~190-370 MB transient) before one big batch;
+        # sub-batching keeps the threaded stage while bounding the spike.
+        res_frames = [j for j in range(chunk.f)
+                      if chunk.kinds[j] in ("key", "pass")]
+        frame_bytes = max(1, int(np.asarray(chunk.frames[0]).nbytes))
+        group_sz = max(1, (48 << 20) // (2 * frame_bytes))
+        for g in range(0, len(res_frames), group_sz):
+            residual_trials(chunk, secs, res_frames[g: g + group_sz], zoom,
+                            rot)
+        stage.next("nbf.enc_assembly")
+        out = assemble_records(chunk, secs)
+        stage.end()
+        zoom.publish()
+        rot.publish()
+        return out
+
+
+def gather_sections(chunk: HostChunk) -> ChunkSections:
+    """Every DEFLATE-able section of the chunk's blocked and pass-through
+    records, collected first so that :func:`deflate_sections` compresses
+    them in ONE native threaded batch (utils/native.py, num_threads
+    plumbed from the public API) instead of per-record zlib calls — the
+    host entropy stage is this pipeline's hot loop once device compute
+    is fast (VERDICT r2 #1/#3)."""
+    secs = ChunkSections(chunk.f)
+    for j, kind in enumerate(chunk.kinds):
+        # key frames: residual trial handled in the bounded pass
+        if kind in ("empty", "sparse", "key"):
+            continue
+        # vseg rows are already pixel-major bytes (device repack);
+        # strip the per-block padding and the stream is done.
+        secs.val[j] = _strip_rows(chunk.vseg[j],
+                                  chunk.vcnt[j] * chunk.channels).tobytes()
+        secs.vz[j] = secs.add(secs.val[j], chunk.vlvl)
+        if kind == "pass":
+            secs.bm[j] = chunk.packed()[j][: (chunk.n + 7) // 8].tobytes()
+            secs.bz[j] = secs.add(secs.bm[j], 1, bits=True)
+        elif kind == "blocked":
+            m = int(chunk.m_arr[j])
+            secs.bm[j] = native.pack_subfilters(chunk.words[j], m).tobytes()
+            secs.bz[j] = secs.add(secs.bm[j], 1, bits=True)
+            seg_lens = (chunk.wcnt[j] + 7) // 8
+            secs.wit[j] = _strip_rows(chunk.wit[j], seg_lens).tobytes()
+            secs.wz[j] = secs.add(secs.wit[j], 1, bits=True)
+            secs.wit_pk[j] = native.bitpack_rows(chunk.wit[j], chunk.wcnt[j])
+    return secs
+
+
+def deflate_sections(chunk: HostChunk, secs: ChunkSections) -> None:
+    """DEFLATE every section a DEFLATE can win, one native batch a
+    level, into ``secs.zsecs`` (empty for the skipped ones)."""
+    # Bitmap/witness sections DEFLATE at level 1: on near-random
+    # filter bits and biased witness bits, higher levels buy <2%
+    # over level 1 at 5x the CPU (measured); value streams and DPCM
+    # residuals keep the configured level, where modeling does pay.
+    secs.zsecs = [b""] * len(secs.bufs)
+    skip = [_deflate_unwinnable(
+                s, bf, secs.hist(("s", i), s) if len(s) >= 4096 else None)
+            for i, (s, bf) in enumerate(zip(secs.bufs, secs.bits))]
+    # witness sections whose BIT-PACKED form is iid (no structure
+    # beyond the bit bias once the padding is gone) skip their
+    # DEFLATE trial too: the padding structure was the only thing
+    # LZ could exploit, and the coding-7 rANS candidate reaches the
+    # iid floor the padded DEFLATE cannot beat.
+    for j, pk in enumerate(secs.wit_pk):
+        if (pk is not None and secs.wz[j] >= 0
+                and _deflate_unwinnable(
+                    pk, True,
+                    secs.hist(("wp", j), pk) if len(pk) >= 4096 else None)):
+            skip[secs.wz[j]] = True
+    for lvl in sorted(set(secs.level)):
+        idxs = [i for i, sl in enumerate(secs.level)
+                if sl == lvl and not skip[i]]
+        outs = native.deflate_frames([secs.bufs[i] for i in idxs],
+                                     level=lvl, threads=chunk.num_threads,
+                                     engine="fast")
+        for i, z in zip(idxs, outs):
+            secs.zsecs[i] = z
+
+
+# ---- residual predictions -------------------------------------------------
+
+class Prediction(NamedTuple):
+    """One kind of residual prediction: ``predict(ref, meta, tlog)``
+    predicts the frame from ``ref(rb)`` (the frame ``rb`` back, or the
+    chunk's base), ``wrap(meta, record, tlog)`` wraps its residual
+    record in the header that tells the decoder so."""
+    predict: Callable
+    wrap: Callable
+
+
+def _roll(prev: np.ndarray, dy: int, dx: int) -> np.ndarray:
+    if (dy, dx) == (0, 0):
+        return prev
+    return np.roll(np.roll(prev, dy, axis=0), dx, axis=1)
+
+
+# The residual predictions by the tag the candidate search gives them;
+# the comment above each names its meta and its wrapper's record type.
+PREDICTIONS: Dict[str, Prediction] = {
+    # (dy, dx) integer roll: type 6, the bare residual at (0, 0)
+    "int": Prediction(
+        lambda ref, m, t: _roll(ref(1), *m),
+        lambda m, rec, t: fc.wrap_motion(*m, rec) if m != (0, 0) else rec),
+    # (sy, sx) half-pel bilinear: type 9
+    "hp": Prediction(lambda ref, m, t: fc.halfpel_predict(ref(1), *m),
+                     lambda m, rec, t: fc.wrap_motion_hp(*m, rec)),
+    # (ref_back, sy, sx) half-pel against an older reference: type 16
+    "ref": Prediction(
+        lambda ref, m, t: fc.halfpel_predict(ref(m[0]), m[1], m[2]),
+        lambda m, rec, t: fc.wrap_motion_ref(*m, rec)),
+    # (rb2, thr) conditional mean of two references: type 19
+    "avg2": Prediction(
+        lambda ref, m, t: fc.avg2_predict(ref(1), ref(m[0]), m[1]),
+        lambda m, rec, t: fc.wrap_avg2(*m, rec)),
+    # (ty, tx, 2) per-tile integer map: type 10
+    "tile": Prediction(lambda ref, m, t: fc.tile_predict(ref(1), m, t),
+                       lambda m, rec, t: fc.wrap_motion_tiles(t, m, rec)),
+    # (ty, tx, 2) per-tile half-pel map: type 17
+    "tileh": Prediction(
+        lambda ref, m, t: fc.tile_predict_hp(ref(1), m, t),
+        lambda m, rec, t: fc.wrap_motion_tiles(t, m, rec,
+                                               rtype=fc.TILES_HP)),
+    # (ref_back, z_cur, z_ref, dy, dx) two-scale parametric zoom: type 18
+    "zoomg": Prediction(
+        lambda ref, m, t: fc.zoom_predict(ref(m[0]), *m[1:]),
+        lambda m, rec, t: fc.wrap_motion_zoom(m[1], m[3], m[4], rec,
+                                              ref_back=m[0], z_ref=m[2])),
+    # (ref_back, a_cur, a_ref, dy, dx) two-angle rotation: type 20
+    "rotg": Prediction(
+        lambda ref, m, t: fc.rot_predict(ref(m[0]), *m[1:]),
+        lambda m, rec, t: fc.wrap_motion_rot(m[1], m[3], m[4], rec,
+                                             ref_back=m[0], a_ref=m[2])),
+}
+
+
+def _ref(chunk: HostChunk, j: int, rb: int) -> np.ndarray:
+    """The frame ``rb`` before frame ``j`` of the chunk (its base when
+    that lies before the chunk)."""
+    return np.asarray(chunk.frames[j - rb] if j >= rb else chunk.base,
+                      np.uint8)
+
+
+def _residual(chunk: HostChunk, j: int, tag: str, meta) -> bytes:
+    """DPCM bytes of frame ``j`` against its ``tag`` prediction."""
+    pred = PREDICTIONS[tag].predict(functools.partial(_ref, chunk, j), meta,
+                                    chunk.tlog)
+    return (np.asarray(chunk.frames[j], np.uint8) - pred).tobytes()
+
+
+# ---- the candidate search -------------------------------------------------
+
+class FrameView:
+    """One key or pass frame as the candidate search's probes see it:
+    its references and the stride grid (``ys``, ``xs``) on which they
+    sample the wrap-aware SAD against ``curr_sub``."""
+
+    def __init__(self, chunk: HostChunk, j: int):
+        self.chunk, self.j, self.kind = chunk, j, chunk.kinds[j]
+        self.gj = chunk.g0 + j
+        self.last = j == chunk.f - 1
+        self.h, self.w, self.stride = chunk.h, chunk.w, chunk.stride
+        self.curr = np.asarray(chunk.frames[j], np.uint8)
+        self.prev = self.ref(1)
+        self.curr_sub = self.curr[::self.stride, ::self.stride].astype(
+            np.int16)
+        self.ys = np.arange(0, self.h, self.stride)
+        self.xs = np.arange(0, self.w, self.stride)
+
+    def ref(self, rb: int) -> np.ndarray:
+        return _ref(self.chunk, self.j, rb)
+
+
+def res_candidates(chunk: HostChunk, j: int, zoom: MotionTrack,
+                   rot: MotionTrack) -> list:
+    """Prediction candidates for the residual trials of key or pass frame
+    ``j``, as (tag, meta) pairs: the accepted mask shift, the
+    unconditional search argmin, the per-tile map (when any tile clears
+    its margin — zoom/rotation content), and — when real global motion
+    is present on direct uint8 content — the probes below (a fractional
+    pan re-mixes every pixel, so the integer-roll residual is large while
+    the bilinear half-pel residual is near-noise).  Every candidate
+    competes by final record size only.  Dense and pass-through-dense
+    frames probe even from a zero argmin: slow pans/zooms (< 0.5
+    px/frame at the edges, e.g. chroma planes at half the luma rate)
+    round to integer zero while a half-pel or parametric-zoom prediction
+    collapses the residual, and these frames were about to pay a
+    keyframe- or pass-through-sized record, which dwarfs the probe
+    cost."""
+    cands = [("int", (int(chunk.shifts[j, 0]), int(chunk.shifts[j, 1])))]
+    by, bx = int(chunk.best_shifts[j, 0]), int(chunk.best_shifts[j, 1])
+    if ("int", (by, bx)) not in cands:
+        cands.append(("int", (by, bx)))
+    if chunk.byte_view or not chunk.motion:
+        return cands
+    tsh = None
+    if min(chunk.h, chunk.w) >= (1 << chunk.tlog):
+        # the per-tile map (lazy: ONE device search a chunk, pulled as
+        # a tiny (F, ty, tx, 3) summary)
+        tsh = choose_tile_shifts(chunk.tile_summary()[j])
+        if tsh.any():
+            cands.append(("tile", tsh))
+    fv = FrameView(chunk, j)
+    if j >= 1:
+        _probe_avg2(fv, cands)
+    # per-tile HALF-PEL refinement (type 17): fractional motion that
+    # VARIES across the frame (zoom/rotation fields) lands between
+    # integer phases per tile; refine each accepted tile shift to its
+    # best half-pel phase.  Dense frames with an all-zero integer map
+    # still probe — slow zooms move <0.5 px/frame at the edges yet
+    # change every pixel.
+    if tsh is not None and (tsh.any() or fv.kind == "key"):
+        thm = _tile_hp_refine(fv.prev, fv.curr, tsh, chunk.tlog, fv.stride)
+        if thm is not None:
+            cands.append(("tileh", thm))
+    _probe_zoom(fv, tsh, by, bx, zoom, cands)
+    _probe_rot(fv, tsh, by, bx, rot, cands)
+    if by == 0 and bx == 0 and fv.kind != "key":
+        # non-dense frame with zero global argmin: the tile map (if
+        # any) was the only sub-pel story; the global half-pel/multi-ref
+        # probes below can't beat a mask the integer diff already made
+        # cheap.
+        return cands
+    _probe_halfpel(fv, by, bx, cands)
+    return cands
+
+
+def _sad(fv: FrameView, pred: np.ndarray) -> int:
+    """Wrap-aware SAD of the stride-grid prediction ``pred``: |curr -
+    pred| mod 256 with ±128 folding."""
+    d = (fv.curr_sub - pred) & 0xFF
+    return int(np.minimum(d, 256 - d).sum())
+
+
+def _sad_count(fv: FrameView, pred: np.ndarray):
+    """:func:`_sad` and the count of changed samples."""
+    d = (fv.curr_sub - pred) & 0xFF
+    return int(np.minimum(d, 256 - d).sum()), int(np.count_nonzero(d))
+
+
+def _probe_avg2(fv: FrameView, cands: list) -> None:
+    """Conditional two-reference average (type 19): on static scenes
+    under sensor grain, averaging two references where they agree halves
+    the reference-side noise the DPCM residual must code (1.5 sigma^2
+    vs 2 sigma^2 — ~0.2 bits/sample); the agreement threshold keeps
+    moving content (where blending ghosts) on plain DPCM.  Threshold
+    picked by subsampled wrap-aware SAD; the candidate only enters when
+    it beats the plain previous-frame diff on that grid."""
+    st = fv.stride
+    p16 = fv.prev[::st, ::st].astype(np.int16)
+    r16 = fv.ref(2)[::st, ::st].astype(np.int16)
+    agree = np.abs(p16 - r16)
+    avg = (p16 + r16 + 1) >> 1
+    prev_sad = _sad(fv, p16)
+    best_t, best_sad = 0, prev_sad
+    for thr in (8, 16, 32):
+        s = _sad(fv, np.where(agree <= thr, avg, p16))
+        if s < best_sad:
+            best_t, best_sad = thr, s
+    if best_t and best_sad < 0.995 * prev_sad:
+        cands.append(("avg2", (2, best_t)))
+
+
+def _hp_sad(fv: FrameView, ref: np.ndarray, sy: int, sx: int) -> int:
+    """Wrap-aware subsampled SAD of the half-pel prediction: it tracks
+    DPCM coded size far better than changed-pixel count on
+    fractional-motion content (bilinear leaves near-zero but nonzero
+    error everywhere).  Gathers ONLY the stride-grid samples with roll
+    (wrap) indexing — value-identical to subsampling the full
+    fc.halfpel_predict at 1/stride^2 the work (the probe loop's
+    full-frame predictions were the encode host stage's largest cost at
+    1080p)."""
+    ys, xs, h, w = fv.ys, fv.xs, fv.h, fv.w
+    iy, fy = sy >> 1, sy & 1
+    ix, fx = sx >> 1, sx & 1
+    r0 = (ys - iy) % h
+    c0 = (xs - ix) % w
+    p00 = ref[r0[:, None], c0[None, :]].astype(np.uint16)
+    if fy:
+        r1 = (ys - iy - 1) % h
+        p10 = ref[r1[:, None], c0[None, :]]
+    if fx:
+        c1 = (xs - ix - 1) % w
+        p01 = ref[r0[:, None], c1[None, :]]
+    if fy and fx:
+        s = (p00 + p10 + p01 + ref[r1[:, None], c1[None, :]] + 2) >> 2
+    elif fy:
+        s = (p00 + p10 + 1) >> 1
+    elif fx:
+        s = (p00 + p01 + 1) >> 1
+    else:
+        s = p00
+    return _sad(fv, s.astype(np.int16))
+
+
+def _zoom_sad(fv: FrameView, ref: np.ndarray, zc: int, zr: int, dyc: int,
+              dxc: int):
+    """Stride-grid (SAD, changed-count) of the type-18 two-scale zoom
+    prediction — same index math as fc.zoom_predict, gathered only at
+    the grid points.  Both metrics matter: a slow zoom's plain diff on
+    smooth texture changes ~70% of pixels at TINY amplitudes (low SAD),
+    while an exact zoom prediction leaves few but larger errors (moving
+    objects) — SAD alone would keep the wrong one."""
+    h, w = fv.h, fv.w
+    sc = 1.0 + zc * 1e-6
+    cy0, cx0 = h / 2.0, w / 2.0
+    my = np.floor((fv.ys - cy0) / sc + cy0)
+    mx = np.floor((fv.xs - cx0) / sc + cx0)
+    if zr:
+        sb = 1.0 + zr * 1e-6
+        my = np.ceil(cy0 + (my - cy0) * sb)
+        mx = np.ceil(cx0 + (mx - cx0) * sb)
+    r = np.clip(my.astype(np.int64) - dyc, 0, h - 1)
+    c2 = np.clip(mx.astype(np.int64) - dxc, 0, w - 1)
+    return _sad_count(fv, ref[r[:, None], c2[None, :]].astype(np.int16))
+
+
+def _rot_sad(fv: FrameView, ref: np.ndarray, a_cur: int, a_ref: int,
+             dyc: int, dxc: int):
+    """Stride-grid (SAD, changed-count) of the type-20 two-angle
+    prediction — same index math as fc.rot_predict, gathered at the
+    grid."""
+    h, w = fv.h, fv.w
+    cy0, cx0 = h / 2.0, w / 2.0
+    yf = fv.ys.astype(np.float64) - cy0
+    xf = fv.xs.astype(np.float64) - cx0
+    th2 = a_cur * 1e-6
+    co, si = math.cos(th2), math.sin(th2)
+    my = np.floor(cy0 + yf[:, None] * co - xf[None, :] * si)
+    mx = np.floor(cx0 + yf[:, None] * si + xf[None, :] * co)
+    if a_ref:
+        tr = -a_ref * 1e-6
+        c1, s1 = math.cos(tr), math.sin(tr)
+        uy = my + 0.5 - cy0
+        ux = mx + 0.5 - cx0
+        my = np.floor(cy0 + uy * c1 - ux * s1)
+        mx = np.floor(cx0 + uy * s1 + ux * c1)
+    ry = my.astype(np.int64) - dyc
+    rx = mx.astype(np.int64) - dxc
+    np.clip(ry, 0, h - 1, out=ry)
+    np.clip(rx, 0, w - 1, out=rx)
+    return _sad_count(fv, ref[ry, rx].astype(np.int16))
+
+
+def _zoom_score(sc_pair) -> int:
+    """Scalar rank of a (SAD, changed-count) pair: each changed pixel
+    pays entropy bits on top of its amplitude, so count carries
+    byte-like weight."""
+    return sc_pair[0] + 4 * sc_pair[1]
+
+
+def _param_refine(fv: FrameView, sad, ref: np.ndarray, start: int, r0: int,
+                  dyx, quant: int, bound: int, max_evals: int):
+    """Coarse-to-fine 1-D descent on the frame's parameter (z_cur or
+    a_cur; the anchor's ``r0`` fixed — for warm anchors it is known from
+    the tracked state), with plateau-aware steps from 4x the edge
+    quantum down to a quarter of it, within ±``bound``.  The score
+    valley at the true value is deep (one edge pixel of error doubles
+    the residual) and a few quanta wide, so the walk locks on in ~20-40
+    evals.  Returns (value, (SAD, changed-count))."""
+    best = start
+    best_p = sad(fv, ref, start, r0, *dyx)
+    best_c = _zoom_score(best_p)
+    step = 4 * quant
+    evals = 0
+    while step >= max(8, quant // 4) and evals < max_evals:
+        moved = True
+        while moved and evals < max_evals:
+            moved = False
+            for cand in (best - step, best + step):
+                if abs(cand) > bound:
                     continue
-                if kind == "key":
-                    continue  # residual trial handled in the bounded pass
-                # vseg rows are already pixel-major bytes (device repack);
-                # strip the per-block padding and the stream is done.
-                val_bytes[j] = _strip_rows(vseg[j],
-                                           vcnt[j] * channels).tobytes()
-                vz_idx[j] = _add(val_bytes[j], vlvl)
-                if kind == "pass":
-                    bm_bytes[j] = packed_row(j)[: (n + 7) // 8].tobytes()
-                    bz_idx[j] = _add(bm_bytes[j], 1, bits=True)
-                elif kind == "blocked":
-                    m = int(m_arr[j])
-                    bm_bytes[j] = native.pack_subfilters(words[j], m).tobytes()
-                    bz_idx[j] = _add(bm_bytes[j], 1, bits=True)
-                    seg_lens = (wcnt[j] + 7) // 8
-                    wit_bytes[j] = _strip_rows(wit[j], seg_lens).tobytes()
-                    wz_idx[j] = _add(wit_bytes[j], 1, bits=True)
-                    if self.witness_pack:
-                        wit_pk[j] = native.bitpack_rows(wit[j], wcnt[j])
+                p = sad(fv, ref, cand, r0, *dyx)
+                evals += 1
+                c = _zoom_score(p)
+                if c < best_c:
+                    best_c, best, best_p = c, cand, p
+                    moved = True
+        step >>= 1
+    return best, best_p
 
-            stage.next("nbf.enc_deflate")
-            # Bitmap/witness sections DEFLATE at level 1: on near-random
-            # filter bits and biased witness bits, higher levels buy <2%
-            # over level 1 at 5x the CPU (measured); value streams and DPCM
-            # residuals keep the configured level, where modeling does pay.
-            zsecs: List[bytes] = [b""] * len(sections)
-            skip = [_deflate_unwinnable(
-                        s, bf,
-                        _hist(("s", i), s) if len(s) >= 4096 else None)
-                    for i, (s, bf) in enumerate(zip(sections, sec_bits))]
-            # witness sections whose BIT-PACKED form is iid (no structure
-            # beyond the bit bias once the padding is gone) skip their
-            # DEFLATE trial too: the padding structure was the only thing
-            # LZ could exploit, and the coding-7 rANS candidate reaches the
-            # iid floor the padded DEFLATE cannot beat.
-            for j in range(f):
-                if (wit_pk[j] is not None and wz_idx[j] >= 0
-                        and _deflate_unwinnable(
-                            wit_pk[j], True,
-                            _hist(("wp", j), wit_pk[j])
-                            if len(wit_pk[j]) >= 4096 else None)):
-                    skip[wz_idx[j]] = True
-            for lvl in sorted(set(sec_level)):
-                idxs = [i for i, sl in enumerate(sec_level)
-                        if sl == lvl and not skip[i]]
-                outs = native.deflate_frames([sections[i] for i in idxs],
-                                             level=lvl,
-                                             threads=self.num_threads,
-                                             engine="fast")
-                for i, z in zip(idxs, outs):
-                    zsecs[i] = z
-            # ---- DPCM residual trials (dense/pass frames) -----------------
-            # Gathered and DEFLATE'd in sub-batches of ~48 MB of raw bytes:
-            # grainy 1080p chunks would otherwise buffer two full-frame
-            # residuals per frame for the whole chunk (~190-370 MB transient)
-            # before one big batch; sub-batching keeps the threaded stage
-            # while bounding the spike.
-            # residual streams are raster frames: the 2D-context coder's
-            # row pitch in bytes
-            res_stride = w * channels
 
-            def _enqueue_rans(tasks: list, tmeta: list, key, raw: bytes,
-                              rl: int, cap: int) -> None:
-                """Entropy-gated trial enqueue: order-0 byte histogram
-                (coding 3) and, on streams large enough to amortize the 8
-                conditional tables, ONE context rANS trial — 2D (coding 6,
-                max of the left/up magnitude buckets; wins 2-8% on
-                spatially-correlated prediction error) when its sampled
-                conditional entropy meaningfully beats the horizontal
-                model's, order-1 (coding 4) otherwise.  H0 lower-bounds
-                the order-0 size and the sampled H1/H2 estimate the
-                context coders, so streams a coder cannot shrink below
-                ``cap`` never reach the pool — at 1080p a wasted rANS pass
-                costs 10-60 ms/frame.  Enqueued tasks run in ONE native
-                threaded call (native.rans_trials), so the trial family
-                scales across host cores like the DEFLATE stage."""
-                if rl < RANS8_MIN:
-                    return
-                h0 = native.entropy_bits(raw)
-                if h0 * rl / 8.0 + 388 < cap:
-                    tasks.append(raw)
-                    tmeta.append((key, 3, 0))
-                if rl >= RANSC_MIN:
-                    h1 = native.cond_entropy_bits(raw)
-                    h2 = (native.cond2_entropy_bits(raw, res_stride)
-                          if res_stride < rl else 8.0)
-                    if h2 < h1 - 0.04 and h2 * rl / 8.0 + 3084 < cap * 1.02:
-                        tasks.append(raw)
-                        tmeta.append((key, 6, res_stride))
-                    elif h1 * rl / 8.0 + 3080 < cap * 1.02:
-                        tasks.append(raw)
-                        tmeta.append((key, 4, 0))
+def _gate(best, p0) -> bool:
+    """The parametric probes' dual gate against the plain prediction's
+    (SAD, count) ``p0``: enter the record trials when the prediction
+    wins on the amplitude-weighted score OR collapses the changed-pixel
+    count — a zoom-exact prediction concentrates few large errors
+    (moving objects) where the plain diff smears tiny errors everywhere,
+    and either shape can be the cheaper record (the trials decide by
+    bytes)."""
+    return (_zoom_score(best[0]) < 0.995 * _zoom_score(p0)
+            or best[0][1] < 0.7 * p0[1])
 
-            def _pick_rans(cands, rl: int, cap: int):
-                """Smallest pooled trial result under ``cap``, as a
-                (coding, bytes, raw_len[, stride]) section, or None.
-                Candidates arrive coding-3-first, so ties go to the
-                cheaper-to-decode byte-histogram coder."""
-                best = None
-                for c, r, st in cands or []:
-                    if len(r) < cap:
-                        best = (c, r, rl) if c != 6 else (6, r, rl, st)
-                        cap = len(r)
-                return best
 
-            res_frames = [j for j in range(f) if kinds[j] in ("key", "pass")]
-            frame_bytes = max(1, int(np.asarray(frames[0]).nbytes))
-            group_sz = max(1, (48 << 20) // (2 * frame_bytes))
-            for g in range(0, len(res_frames), group_sz):
-                raws, meta = [], []
-                for j in res_frames[g: g + group_sz]:
-                    for tag, m in _res_candidates(j):
-                        r = _residual(j, tag, m)
-                        raws.append(r)
-                        meta.append((j, tag, m, len(r)))
-                outs = native.deflate_frames(raws, level=vlvl,
-                                             threads=self.num_threads,
-                                             engine="fast")
-                # Spatially-filtered variants (type 14) where DEFLATE left
-                # headroom: fractional-motion prediction error is spatially
-                # correlated (bilinear interpolation low-passes the frame),
-                # so SUB/UP filtering cuts subpixel-pan residuals 10-15%.
-                # The gate skips trials DEFLATE already crushed (film grain
-                # LZ structure), bounding the extra host CPU to content
-                # where filtering can actually win.
-                filt_raws, filt_meta = [], []
-                if not byte_view:
-                    for idx, ((j, tag, m, rl), z) in enumerate(
-                            zip(meta, outs)):
-                        if len(z) <= FILTER_GATE * rl:
-                            continue
-                        plane = np.frombuffer(raws[idx], np.uint8).reshape(
-                            np.asarray(frames[j]).shape)
-                        for fid in (1, 2, 3):
-                            filt_raws.append(
-                                fc.spatial_filter(plane, fid).tobytes())
-                            filt_meta.append((idx, fid))
-                filt_outs = (native.deflate_frames(
-                    filt_raws, level=vlvl, threads=self.num_threads,
-                    engine="fast")
-                    if filt_raws else [])
-                # One pooled native call runs every entropy-gated rANS
-                # trial of the group across host threads (filtered and
-                # unfiltered residuals alike), instead of serial
-                # per-stream encodes on the Python thread.
-                rtasks: list = []
-                rmeta: list = []
-                base_recs: list = []
-                for (idx, fid), fraw, fz in zip(filt_meta, filt_raws,
-                                                filt_outs):
-                    _enqueue_rans(rtasks, rmeta, ("f", idx, fid), fraw,
-                                  meta[idx][3], len(fz))
-                for idx, ((j, tag, m, rl), raw, z) in enumerate(
-                        zip(meta, raws, outs)):
-                    rec = fc.build_residual_record(rl, z)
-                    base_recs.append(rec)
-                    _enqueue_rans(rtasks, rmeta, ("u", idx), raw, rl,
-                                  len(rec) - 10)
-                routs = native.rans_trials(rtasks,
-                                           [c for _, c, _ in rmeta],
-                                           threads=self.num_threads,
-                                           strides=[s for _, _, s in rmeta])
-                rcands: dict = {}
-                for (key, c, s), r in zip(rmeta, routs):
-                    if r is not None:
-                        rcands.setdefault(key, []).append((c, r, s))
-                best_filt: dict = {}
-                for (idx, fid), fz in zip(filt_meta, filt_outs):
-                    rl = meta[idx][3]
-                    sec, cost = (1, fz, rl), len(fz)
-                    rsec = _pick_rans(rcands.get(("f", idx, fid)), rl, cost)
-                    if rsec is not None:
-                        sec = rsec
-                    frec = fc.build_residual_f_record(fid, sec)
-                    cur = best_filt.get(idx)
-                    if cur is None or len(frec) < len(cur):
-                        best_filt[idx] = frec
-                for idx, (j, tag, m, rl) in enumerate(meta):
-                    # type 8 (DEFLATE) vs type 13 (byte-rANS section) vs
-                    # type 14 (filtered): only the smallest wrapped record
-                    # survives the group, so trial storage stays one record
-                    # per frame.
-                    rec = base_recs[idx]
-                    rsec = _pick_rans(rcands.get(("u", idx)), rl,
-                                      len(rec) - 10)
-                    if rsec is not None and len(rsec[1]) + 10 < len(rec):
-                        rec = fc.build_residual_s_record(rsec)
-                    frec = best_filt.get(idx)
-                    if frec is not None and len(frec) < len(rec):
-                        rec = frec
-                    res_trials[j].append((tag, m, rec))
+def _param_search(fv: FrameView, sad, probes, by: int, bx: int, quant: int,
+                  bound: int, max_evals: int):
+    """Best two-parameter prediction over ``probes`` (rb, anchor value,
+    [seeds]; at least one seed), as ((SAD, count), rb, value, anchor
+    value, dy, dx).  Seed pass: score every (probe, seed, translation)
+    cheaply, then run ONE descent from the single best start — refining
+    from seeds outside the valley just walks plateaus for nothing (the
+    probe stage is per-frame host work; at 1080p each eval is a
+    32k-point gather)."""
+    dyxs = [(by, bx)]
+    if (by, bx) != (0, 0):
+        dyxs.append((0, 0))
+    start = None  # (score, probe-idx, seed, dyx)
+    refs = []
+    for rb0, r0, seeds in probes:
+        ref0 = fv.ref(rb0)
+        refs.append(ref0)
+        for dyx in dyxs:
+            for s in seeds:
+                c = _zoom_score(sad(fv, ref0, s, r0, *dyx))
+                if start is None or c < start[0]:
+                    start = (c, len(refs) - 1, s, dyx)
+    _, pi, seed, dyx = start
+    rb0, r0, _ = probes[pi]
+    cur, p = _param_refine(fv, sad, refs[pi], seed, r0, dyx, quant, bound,
+                           max_evals)
+    return (p, rb0, cur, r0, *dyx)
 
-            stage.next("nbf.enc_assembly")
 
-            def _sec(raw: Optional[bytes], zi: int, byte_rans: bool = False):
-                """Per-section coding choice: raw vs DEFLATE vs static
-                binary rANS vs (``byte_rans``) byte-histogram rANS,
-                whichever stores fewest bytes (header cost included).
-                Binary rANS — the near-entropy coder for iid-biased bit
-                streams (native/nbf.cpp) — is only attempted when the
-                stream's bit density is away from 0.5 (quantized prob
-                outside [0.35, 0.65]), where H(p) < 1 leaves room to win;
-                witness streams (~0.8 ones) and sparse pass-through masks
-                are the targets.  Byte rANS targets value streams and DPCM
-                residuals, where DEFLATE's Huffman stage leaves 5-15% on
-                the table and runs 5-10x slower; its 384-byte stored table
-                needs sections of a few KB to amortize."""
-                if raw is None or len(raw) == 0:
-                    return (0, b"", 0)
-                best_cost, best = len(raw), (0, raw, 0)
-                z = zsecs[zi]
-                if z and len(z) + 4 < best_cost:
-                    best_cost, best = len(z) + 4, (1, z, len(raw))
-                hist = _hist(("s", zi), raw)
-                ones = int(hist @ native._POP8)
-                prob, floor_b = _bitrans_pred(len(raw), ones)
-                # attempt binary rANS only when its provable floor can
-                # still beat the current best (acceptance needs
-                # len(r) + 5 < best_cost and len(r) >= floor - slack)
-                if ((prob <= 90 or prob >= 166)
-                        and floor_b + 3.0 < best_cost):
-                    r = native.rans_encode(raw, prob)
-                    if r is not None and len(r) + 5 < best_cost:
-                        best_cost = len(r) + 5
-                        best = (2, r, len(raw), prob)
-                if byte_rans and len(raw) >= RANS8_MIN:
-                    # entropy pre-gates (see _enqueue_rans): skip coders
-                    # the stream's H0/H1 already rules out — value streams
-                    # are often near-uniform changed-pixel bytes where a
-                    # wasted rANS pass costs milliseconds per frame.
-                    nzp = hist[hist > 0] / len(raw)
-                    h0 = float(-(nzp * np.log2(nzp)).sum())
-                    if h0 * len(raw) / 8.0 + 392 < best_cost:
-                        r8 = native.rans8_encode(raw)
-                        if r8 is not None and len(r8) + 4 < best_cost:
-                            best_cost = len(r8) + 4
-                            best = (3, r8, len(raw))
-                    if len(raw) >= RANSC_MIN:
-                        h1 = native.cond_entropy_bits(raw)
-                        if h1 * len(raw) / 8.0 + 3084 < best_cost * 1.02:
-                            rc = native.ransc_encode(raw)
-                            if rc is not None and len(rc) + 4 < best_cost:
-                                best_cost = len(rc) + 4
-                                best = (4, rc, len(raw))
-                return best
+def _probe_zoom(fv: FrameView, tsh, by: int, bx: int, track: MotionTrack,
+                cands: list) -> None:
+    """Parametric zoom probe (type 18): a radial shift field varies
+    continuously with radius — the per-tile map can only quantize it,
+    leaving mixed-rounding seams inside every tile.  FIXED-ANCHOR
+    tracking: a slow zoom's per-frame scale step is UNIDENTIFIABLE at
+    short range (any z with edge shift under a pixel quantizes to the
+    same map), so advancing the anchor every frame locks in a wrong
+    absolute scale and poisons the two-scale requantization.  Instead
+    the anchor frame stays PINNED — its latent scale is trustworthy (0
+    at the zoom's onset: the pre-zoom frame IS the latent grid) — and
+    identifiability grows with distance as the cumulative relative zoom
+    leaves the sub-pixel regime.  The anchor re-pins to the accepted
+    frame at the chunk's last frame (the only frame the next chunk can
+    still reach as its base) or when rb nears the 15-frame format
+    bound, by which point its z_cur is well-identified.  A COLD probe
+    (no reachable anchor) sweeps single-scale against the previous
+    frame from the tile-map radial fit or, on dense/pass frames, a
+    small geometric grid.  Candidates compete by final record size; SAD
+    acceptance gates the trial."""
+    h, w = fv.h, fv.w
+    zfit = _zoom_fit(tsh, fv.chunk.tlog, h, w) if tsh is not None else 0.0
+    warm = track.warm(fv)
+    probes = []   # (rb, z_ref, [z_cur seeds])
+    if warm:
+        rb0 = fv.gj - track.work["gidx"]
+        zr0 = track.work["abs"]
+        # The tracked per-frame rate plus a geometric grid scaled by the
+        # anchor distance: early in a zoom the rate estimate is
+        # unidentifiable (every sub-pixel scale quantizes to the same
+        # map, so the SAD surface is a plateau the descent cannot
+        # cross) — a 2x-spaced grid always lands one seed inside the
+        # deep valley around the true cumulative scale.
+        seeds = [int(round(zr0 + track.work.get("rel", 0.0) * rb0))]
+        if abs(zfit) > 2.0 / max(h, w):
+            seeds.append(int(round(zr0 + zfit * 1e6 / (1.0 - zfit) * rb0)))
+        for zrate in (500, 1000, 2000, 4000, 8000, 16000):
+            for sgn in (1, -1):
+                zp = zr0 + sgn * zrate * rb0
+                if zp not in seeds:
+                    seeds.append(zp)
+        # the format bounds |z| <= 5e5 ppm; the tracked-rate and fit
+        # seeds extrapolated by the anchor distance can overshoot it
+        # (the refine clamps its steps, but a start outside the range
+        # would survive to the wrap and raise)
+        seeds = [z for z in seeds if abs(z) <= 500_000]
+        if seeds:
+            probes.append((rb0, zr0, seeds))
+    else:
+        # cold single-scale probe vs prev: the previous frame is assumed
+        # to BE the latent grid (true at a zoom's onset; mid-zoom cold
+        # starts fail the SAD gate and stay cold)
+        if abs(zfit) > 2.0 / max(h, w):
+            zcands = [zfit * m for m in (0.7, 0.85, 1.0, 1.15, 1.3)]
+        else:
+            # dense AND pass-through-dense frames sweep the geometric
+            # grid: a slow zoom changes 30-50% of pixels (pass
+            # territory) while every tile shift stays sub-pixel, so
+            # neither the tile map nor the argmin hints at it
+            zcands = [sgn * z
+                      for z in (0.0005, 0.001, 0.002, 0.004, 0.008, 0.016)
+                      for sgn in (1, -1)]
+        seeds = []
+        for z in zcands:
+            zp = int(round(z * 1e6 / (1.0 - z)))
+            if zp and abs(zp) <= 500_000:
+                seeds.append(zp)
+        if seeds:
+            probes.append((1, 0, seeds))
+    if not probes:
+        return
+    # One-edge-pixel scale quantum: the gathered map is PIECEWISE
+    # CONSTANT in z (a pixel at distance d from the centre changes its
+    # source index every ~1e6/d ppm), so descent steps below the edge
+    # quantum land on plateaus and stall — the walk must stride at least
+    # one plateau per step.
+    zquant = max(16, int(1e6 / max(1, max(h, w) // 2)))
+    best = _param_search(fv, _zoom_sad, probes, by, bx, zquant, 500_000,
+                         128)
+    if _gate(best, _zoom_sad(fv, fv.prev, 0, 0, by, bx)):
+        cands.append(("zoomg", best[1:]))
+        track.accept(warm, fv, *best[1:4])
 
-            # ---- record assembly ------------------------------------------
-            def emit(j: int, rec: bytes):
-                """Append ``rec``, motion-wrapped when frame j carries a
-                nonzero shift (keyframes never wrap — they reset)."""
-                dy, dx = int(shifts[j, 0]), int(shifts[j, 1])
-                if dy or dx:
-                    rec = fc.wrap_motion(dy, dx, rec)
-                payload_sink.append(rec)
 
-            def _residual_rec(j: int) -> bytes:
-                """Smallest residual trial, motion-wrapped with ITS OWN
-                prediction (which may differ from the mask path's
-                shifts[j]): none/type-6 roll, type-9 half-pel, or type-10
-                per-tile map."""
-                best = None
-                for tag, m, rec in res_trials[j]:
-                    if tag == "hp":
-                        rec = fc.wrap_motion_hp(m[0], m[1], rec)
-                    elif tag == "ref":
-                        rec = fc.wrap_motion_ref(m[0], m[1], m[2], rec)
-                    elif tag == "avg2":
-                        rec = fc.wrap_avg2(m[0], m[1], rec)
-                    elif tag == "tile":
-                        rec = fc.wrap_motion_tiles(tlog, m, rec)
-                    elif tag == "tileh":
-                        rec = fc.wrap_motion_tiles(tlog, m, rec,
-                                                   rtype=fc.TILES_HP)
-                    elif tag == "zoomg":
-                        rec = fc.wrap_motion_zoom(m[1], m[3], m[4], rec,
-                                                  ref_back=m[0],
-                                                  z_ref=m[2])
-                    elif tag == "rotg":
-                        rec = fc.wrap_motion_rot(m[1], m[3], m[4], rec,
-                                                 ref_back=m[0],
-                                                 a_ref=m[2])
-                    elif m != (0, 0):
-                        rec = fc.wrap_motion(m[0], m[1], rec)
-                    if best is None or len(rec) < len(best):
-                        best = rec
-                return best
+def _probe_rot(fv: FrameView, tsh, by: int, bx: int, track: MotionTrack,
+               cands: list) -> None:
+    """Parametric rotation probe (type 20): a rotation's shift field
+    varies with radius AND direction — the tile map quantizes it into
+    mixed-rounding seams.  Same anchored two-parameter tracking as the
+    zoom probe: the anchor frame's absolute latent angle stays PINNED
+    (composing two nearest-neighbour resamplings through a single
+    relative angle mispredicts many pixels mid-rotation), warm seeds
+    come from the tracked rate plus an aquant-scaled grid by anchor
+    distance, and a cold start anchors the previous frame at latent
+    angle 0 (exact at a rotation's onset).  Candidates compete by final
+    record size; SAD acceptance gates the trial."""
+    h, w = fv.h, fv.w
+    rfit = _rot_fit(tsh, fv.chunk.tlog, h, w) if tsh is not None else 0.0
+    max_rad = max(h, w) / 2.0
+    aquant = max(16, int(round(1e6 / max_rad)))
+    zoom_added = any(t == "zoomg" for t, _ in cands)
+    warm = track.warm(fv)
+    probes = []   # (rb, a_ref, [a_cur seeds])
+    if warm:
+        rb0 = fv.gj - track.work["gidx"]
+        ar0 = track.work["abs"]
+        seeds = [int(round(ar0 + track.work.get("rel", 0.0) * rb0))]
+        if abs(rfit) * max_rad > 2.0:
+            for sgn in (1, -1):
+                seeds.append(int(round(ar0 + sgn * rfit * 1e6 * rb0)))
+        for m_ in (1, 2, 4, 8, 16):
+            for sgn in (1, -1):
+                ap = ar0 + sgn * m_ * aquant * rb0
+                if ap not in seeds:
+                    seeds.append(ap)
+        # the format bounds |angle| <= 1e6 urad; a tracked rate
+        # extrapolated by the anchor distance can overshoot it
+        seeds = [a for a in seeds if abs(a) <= 1_000_000]
+        if seeds:
+            probes.append((rb0, ar0, seeds))
+    else:
+        if abs(rfit) * max_rad > 2.0:
+            seeds = [int(round(sgn * rfit * 1e6 * m_))
+                     for m_ in (0.7, 0.85, 1.0, 1.15, 1.3)
+                     for sgn in (1, -1)]
+            seeds = [a for a in seeds if 0 < abs(a) <= 1_000_000]
+        elif not zoom_added:
+            seeds = [sgn * m_ * aquant
+                     for m_ in (1, 2, 4, 8, 16)
+                     for sgn in (1, -1)
+                     if m_ * aquant <= 1_000_000]
+        else:
+            seeds = []
+        if seeds:
+            probes.append((1, 0, seeds))
+    if not probes:
+        return
+    best = _param_search(fv, _rot_sad, probes, by, bx, aquant, 1_000_000,
+                         96)
+    if best[2] != best[3] and _gate(best, _rot_sad(fv, fv.prev, 0, 0, 0, 0)):
+        cands.append(("rotg", best[1:]))
+        track.accept(warm, fv, *best[1:4])
 
-            for j in range(f):
-                kind = kinds[j]
-                if kind == "empty":
-                    emit(j, fc.encode_empty_frame())
-                    continue
-                if kind == "key":
-                    # dense fallback: DPCM residual vs full keyframe — the
-                    # keyframe wins on true scene cuts (residual ~ random),
-                    # the residual on grain/subpixel motion
-                    key_rec = keyframe_fn(j)
-                    res_rec = _residual_rec(j)
-                    if os.environ.get("NBF_DEBUG_TRIALS"):
-                        print(f"[trials] j={j} key={len(key_rec)} " +
-                              " ".join(f"{t}:{m if t in ('int','hp','ref','zoomg') else '-'}:{len(r)}"
-                                       for t, m, r in res_trials[j]),
-                              flush=True)
-                    if len(res_rec) < len(key_rec):
-                        payload_sink.append(res_rec)  # carries its own wrap
-                    else:
-                        payload_sink.append(key_rec)
-                        keyframes += 1
-                    continue
-                cnt = int(frame_counts[j])
-                p = cnt / n
-                if kind == "sparse":
-                    values = _strip_rows(vseg[j], vcnt[j] * channels)
-                    mask_bits = np.unpackbits(packed_row(j))[:n]
-                    indices = np.flatnonzero(mask_bits)
-                    emit(j, fc.encode_sparse_frame(
-                        n, indices, values, zlib_level=zl))
-                    continue
-                values_z = zsecs[vz_idx[j]]
-                vcount = len(val_bytes[j])
-                vsec = _sec(val_bytes[j], vz_idx[j], byte_rans=True)
-                if kind == "pass":
-                    bsec = _sec(bm_bytes[j], bz_idx[j])
-                    if vsec[0] != 1:
-                        rec = fc.build_blocked_s_record(
-                            p, n, ks[j], n, 0, bsec, (0, b"", 0), vsec)
-                    elif bsec[0]:
-                        rec = fc.build_blocked_z_record(
-                            p, n, ks[j], n, 0, bsec, (0, b"", 0),
-                            values_z, vcount)
-                    else:
-                        rec = fc.build_interframe_record(
-                            p, n, ks[j], bm_bytes[j], n, b"", 0,
-                            values_z=values_z, values_count=vcount)
-                    res_rec = _residual_rec(j)
-                    if len(res_rec) < len(rec) + (
-                            5 if (shifts[j, 0] or shifts[j, 1]) else 0):
-                        payload_sink.append(res_rec)  # carries its own wrap
-                    else:
-                        emit(j, rec)
-                    continue
-                # blocked record: per-section entropy choice; all-raw falls
-                # back to the type-3 layout (decodes in older readers).
-                m = int(m_arr[j])
-                bsec = _sec(bm_bytes[j], bz_idx[j])
-                wsec = _sec(wit_bytes[j], wz_idx[j])
-                wbits = int(wcnt[j].sum())
-                # coding-7 witness candidate: strip the per-block byte
-                # padding (~17% of witness bytes on sparse-change content)
-                # and binary-rANS the pure bit stream; the decoder re-pads
-                # from its own membership counts, so only the packed byte
-                # count travels.  Beats the DEFLATE-of-padded-rows trial,
-                # whose only edge WAS the padding structure.
-                if wbits and wit_pk[j] is not None:
-                    packed = wit_pk[j]
-                    ones = int(_hist(("wp", j), packed) @ native._POP8)
-                    prob, floor_b = _bitrans_pred(len(packed), ones)
-                    # coding-7 stored cost is len(r) + 10 header bytes
-                    # (fc._sec_stored_cost); attempt the encode only
-                    # when the provable floor can still win
-                    if floor_b + 8.0 < fc._sec_stored_cost(wsec):
-                        r = native.rans_encode(packed, prob)
-                        if r is not None:
-                            w7 = (7, r, len(packed), prob)
-                            if (fc._sec_stored_cost(w7)
-                                    < fc._sec_stored_cost(wsec)):
-                                wsec = w7
-                if vsec[0] != 1:
-                    emit(j, fc.build_blocked_s_record(
-                        p, n, ks[j], m * nb, wbits, bsec, wsec, vsec))
-                elif bsec[0] or wsec[0]:
-                    emit(j, fc.build_blocked_z_record(
-                        p, n, ks[j], m * nb, wbits, bsec, wsec,
-                        values_z, vcount))
-                else:
-                    emit(j, fc.build_interframe_record(
-                        p, n, ks[j], bm_bytes[j], m * nb,
-                        wit_bytes[j], wbits, values_z=values_z,
-                        values_count=vcount, rtype=fc.BLOCKED))
-            stage.end()
-            # Publish the chunk's exit zoom-tracking state for the next
-            # chunk's entry snapshot (finishes run in chunk order, so
-            # this is a plain in-order handoff; repeat runs of the same
-            # chunk republish the same exit state).
-            self._zoom_state = dict(zstate)
-            self._rot_state = dict(rstate)
-            return payload_sink, keyframes
 
-        return finish
+def _vertex(vm, v0, vp) -> float:
+    """Sub-sample offset of the parabola through three equally-spaced
+    SAD samples, clamped to [-1, 1]."""
+    den = vm - 2 * v0 + vp
+    if den <= 0:
+        return float(np.argmin([vm, v0, vp]) - 1)
+    return float(np.clip(0.5 * (vm - vp) / den, -1, 1))
+
+
+def _probe_halfpel(fv: FrameView, by: int, bx: int, cands: list) -> None:
+    """Global half-pel (type 9) and multi-reference (type 16) probes
+    around the integer argmin (by, bx)."""
+    if fv.kind == "key" and by == 0 and bx == 0:
+        # Interpolated motion (a real camera pan) changes EVERY pixel,
+        # so the changed-pixel count the device search minimizes is flat
+        # across shifts and its argmin is noise — the sub-pel probes
+        # below would anchor at (0, 0) and miss the true shift entirely
+        # (the frames then pay full keyframes).  A coarse wrap-aware
+        # integer SAD search over +-3 px re-anchors them; the subsampled
+        # gather keeps it a few ms even at 1080p, and it only runs on
+        # dense frames whose alternative is a keyframe-sized record.
+        best_i = None
+        for iy in range(-3, 4):
+            for ix in range(-3, 4):
+                ps = fv.prev[(fv.ys - iy) % fv.h][:, (fv.xs - ix) % fv.w]
+                c = _sad(fv, ps)
+                if best_i is None or c < best_i:
+                    best_i, by, bx = c, iy, ix
+        if (by, bx) != (0, 0) and ("int", (by, bx)) not in cands:
+            cands.append(("int", (by, bx)))
+
+    int_sad = None
+    best_c, best_s = None, None
+    hp_grid = np.zeros((3, 3))
+    for oy in (-1, 0, 1):
+        for ox in (-1, 0, 1):
+            sy, sx = 2 * by + oy, 2 * bx + ox
+            c = _hp_sad(fv, fv.prev, sy, sx)
+            hp_grid[oy + 1, ox + 1] = c
+            if oy == 0 and ox == 0:
+                int_sad = c
+            elif best_c is None or c < best_c:
+                best_c, best_s = c, (sy, sx)
+    if best_c is not None and best_c < 0.995 * int_sad:
+        cands.append(("hp", best_s))
+
+    # QUARTER-pel per-frame motion estimate from the 3x3 half-pel SAD
+    # grid (separable parabolic fit): the true fractional shift lands
+    # between half-pel samples; the vertex recovers it to ~1/4 pel,
+    # which is what anchors the multi-reference probes correctly below.
+    est_y = 2 * by + _vertex(hp_grid[0, 1], hp_grid[1, 1], hp_grid[2, 1])
+    est_x = 2 * bx + _vertex(hp_grid[1, 0], hp_grid[1, 1], hp_grid[1, 2])
+    # multi-reference probes (type 16): sub-half-pel motion (fractional
+    # pans; chroma planes pan at half the luma rate) lands BETWEEN
+    # half-pel phases frame-to-frame, but rb frames back the phase step
+    # multiplies back onto the grid and the bilinear prediction matches
+    # — the frames that were keyframing despite the half-pel search (60%
+    # of the pan_subpixel stream's bytes).  Probes center on rb *
+    # (quarter-pel estimate): scaling the INTEGER argmin instead
+    # (2*rb*by) compounds its up-to-half-pel error by rb and misses the
+    # matching phase entirely (e.g. a 1.25 px/frame pan: true rb=4 shift
+    # is 10 half-pels, 2*rb*by anchors at 8).
+    for rb in (2, 4, 8):
+        if fv.j < rb - 1:
+            continue
+        ref = fv.ref(rb)
+        best2_c, best2_s = _hp_descent(fv, ref, int(round(rb * est_y)),
+                                       int(round(rb * est_x)))
+        if best2_c < 0.995 * int_sad:
+            cands.append(("ref", (rb, *best2_s)))
+
+
+def _hp_descent(fv: FrameView, ref: np.ndarray, cy: int, cx: int):
+    """Separable coordinate descent (2 rounds, ±3 sweeps) of the half-pel
+    SAD against ``ref`` from the anchor (cy, cx): the quarter-pel
+    estimate's error compounds by rb (a 0.38 half-pel bias is 3
+    half-pels off at rb=8), so a fixed ±1 grid around rb*est misses the
+    exactly-matching phase; the descent walks to it (SAD collapses at
+    the true phase, so the valley is steep and 1-D sweeps find it).
+    Returns (SAD, (sy, sx))."""
+    best_s = (cy, cx)
+    best_c = _hp_sad(fv, ref, cy, cx)
+    for _ in range(2):
+        improved = False
+        sy0, sx0 = best_s
+        for sy in range(sy0 - 3, sy0 + 4):
+            if sy == sy0:
+                continue
+            c = _hp_sad(fv, ref, sy, sx0)
+            if c < best_c:
+                best_c, best_s = c, (sy, sx0)
+                improved = True
+        sy0, sx0 = best_s
+        for sx in range(sx0 - 3, sx0 + 4):
+            if sx == sx0:
+                continue
+            c = _hp_sad(fv, ref, sy0, sx)
+            if c < best_c:
+                best_c, best_s = c, (sy0, sx)
+                improved = True
+        if not improved:
+            break
+    return best_c, best_s
+
+
+# ---- the residual trials --------------------------------------------------
+
+def _enqueue_rans(tasks: list, tmeta: list, key, raw: bytes, rl: int,
+                  cap: int, stride: int) -> None:
+    """Entropy-gated trial enqueue: order-0 byte histogram (coding 3)
+    and, on streams large enough to amortize the 8 conditional tables,
+    ONE context rANS trial — 2D (coding 6, max of the left/up magnitude
+    buckets; wins 2-8% on spatially-correlated prediction error) when
+    its sampled conditional entropy meaningfully beats the horizontal
+    model's, order-1 (coding 4) otherwise.  H0 lower-bounds the order-0
+    size and the sampled H1/H2 estimate the context coders, so streams a
+    coder cannot shrink below ``cap`` never reach the pool — at 1080p a
+    wasted rANS pass costs 10-60 ms/frame.  Enqueued tasks run in ONE
+    native threaded call (native.rans_trials), so the trial family
+    scales across host cores like the DEFLATE stage.  ``stride``: the
+    raster row pitch in bytes of the 2D-context coder."""
+    if rl < RANS8_MIN:
+        return
+    h0 = native.entropy_bits(raw)
+    if h0 * rl / 8.0 + 388 < cap:
+        tasks.append(raw)
+        tmeta.append((key, 3, 0))
+    if rl >= RANSC_MIN:
+        h1 = native.cond_entropy_bits(raw)
+        h2 = (native.cond2_entropy_bits(raw, stride)
+              if stride < rl else 8.0)
+        if h2 < h1 - 0.04 and h2 * rl / 8.0 + 3084 < cap * 1.02:
+            tasks.append(raw)
+            tmeta.append((key, 6, stride))
+        elif h1 * rl / 8.0 + 3080 < cap * 1.02:
+            tasks.append(raw)
+            tmeta.append((key, 4, 0))
+
+
+def _pick_rans(cands, rl: int, cap: int):
+    """Smallest pooled trial result under ``cap``, as a (coding, bytes,
+    raw_len[, stride]) section, or None.  Candidates arrive
+    coding-3-first, so ties go to the cheaper-to-decode byte-histogram
+    coder."""
+    best = None
+    for c, r, st in cands or []:
+        if len(r) < cap:
+            best = (c, r, rl) if c != 6 else (6, r, rl, st)
+            cap = len(r)
+    return best
+
+
+def residual_trials(chunk: HostChunk, secs: ChunkSections, js: List[int],
+                    zoom: MotionTrack, rot: MotionTrack) -> None:
+    """The DPCM residual trials of one group of key and pass frames
+    ``js``: every candidate's residual DEFLATE'd in one batch, its
+    filtered variants and entropy-gated rANS trials pooled likewise; the
+    smallest record of each candidate goes to ``secs.res_trials``."""
+    raws, meta = [], []
+    for j in js:
+        for tag, m in res_candidates(chunk, j, zoom, rot):
+            r = _residual(chunk, j, tag, m)
+            raws.append(r)
+            meta.append((j, tag, m, len(r)))
+    vlvl, threads = chunk.vlvl, chunk.num_threads
+    outs = native.deflate_frames(raws, level=vlvl, threads=threads,
+                                 engine="fast")
+    # Spatially-filtered variants (type 14) where DEFLATE left
+    # headroom: fractional-motion prediction error is spatially
+    # correlated (bilinear interpolation low-passes the frame),
+    # so SUB/UP filtering cuts subpixel-pan residuals 10-15%.
+    # The gate skips trials DEFLATE already crushed (film grain
+    # LZ structure), bounding the extra host CPU to content
+    # where filtering can actually win.
+    filt_raws, filt_meta = [], []
+    if not chunk.byte_view:
+        for idx, ((j, tag, m, rl), z) in enumerate(zip(meta, outs)):
+            if len(z) <= FILTER_GATE * rl:
+                continue
+            plane = np.frombuffer(raws[idx], np.uint8).reshape(
+                np.asarray(chunk.frames[j]).shape)
+            for fid in (1, 2, 3):
+                filt_raws.append(fc.spatial_filter(plane, fid).tobytes())
+                filt_meta.append((idx, fid))
+    filt_outs = (native.deflate_frames(filt_raws, level=vlvl,
+                                       threads=threads, engine="fast")
+                 if filt_raws else [])
+    # One pooled native call runs every entropy-gated rANS trial of the
+    # group across host threads (filtered and unfiltered residuals
+    # alike), instead of serial per-stream encodes on the Python thread.
+    # Residual streams are raster frames: the 2D-context coder's row
+    # pitch in bytes is a frame row's.
+    res_stride = chunk.w * chunk.channels
+    rtasks: list = []
+    rmeta: list = []
+    base_recs: list = []
+    for (idx, fid), fraw, fz in zip(filt_meta, filt_raws, filt_outs):
+        _enqueue_rans(rtasks, rmeta, ("f", idx, fid), fraw, meta[idx][3],
+                      len(fz), res_stride)
+    for idx, ((j, tag, m, rl), raw, z) in enumerate(zip(meta, raws, outs)):
+        rec = fc.build_residual_record(rl, z)
+        base_recs.append(rec)
+        _enqueue_rans(rtasks, rmeta, ("u", idx), raw, rl, len(rec) - 10,
+                      res_stride)
+    routs = native.rans_trials(rtasks, [c for _, c, _ in rmeta],
+                               threads=threads,
+                               strides=[s for _, _, s in rmeta])
+    rcands: dict = {}
+    for (key, c, s), r in zip(rmeta, routs):
+        if r is not None:
+            rcands.setdefault(key, []).append((c, r, s))
+    best_filt: dict = {}
+    for (idx, fid), fz in zip(filt_meta, filt_outs):
+        rl = meta[idx][3]
+        sec, cost = (1, fz, rl), len(fz)
+        rsec = _pick_rans(rcands.get(("f", idx, fid)), rl, cost)
+        if rsec is not None:
+            sec = rsec
+        frec = fc.build_residual_f_record(fid, sec)
+        cur = best_filt.get(idx)
+        if cur is None or len(frec) < len(cur):
+            best_filt[idx] = frec
+    for idx, (j, tag, m, rl) in enumerate(meta):
+        # type 8 (DEFLATE) vs type 13 (byte-rANS section) vs type 14
+        # (filtered): only the smallest wrapped record survives the
+        # group, so trial storage stays one record per frame.
+        rec = base_recs[idx]
+        rsec = _pick_rans(rcands.get(("u", idx)), rl, len(rec) - 10)
+        if rsec is not None and len(rsec[1]) + 10 < len(rec):
+            rec = fc.build_residual_s_record(rsec)
+        frec = best_filt.get(idx)
+        if frec is not None and len(frec) < len(rec):
+            rec = frec
+        secs.res_trials[j].append((tag, m, rec))
+
+
+# ---- record assembly ------------------------------------------------------
+
+def _bitrans_pred(length: int, ones: int):
+    """(quantized prob, provable floor in bytes) of static binary rANS
+    over a ``length``-byte stream with ``ones`` set bits: the coded body
+    cannot land meaningfully below the cross-entropy of the bit density
+    against the quantized model, so callers skip the encode entirely
+    when even the floor loses the section (the skipped trials were pure
+    waste: same final coding choice)."""
+    bits8 = 8 * length
+    prob = min(255, max(1, round(256 * ones / bits8)))
+    q = prob / 256.0
+    pb = ones / bits8
+    hq = 0.0
+    if pb > 0.0:
+        hq -= pb * math.log2(q)
+    if pb < 1.0:
+        hq -= (1.0 - pb) * math.log2(1.0 - q)
+    return prob, length * hq + 4.0  # 4-byte state head
+
+
+def _section_coding(secs: ChunkSections, raw: Optional[bytes], zi: int,
+                    byte_rans: bool = False):
+    """Per-section coding choice: raw vs DEFLATE vs static binary rANS
+    vs (``byte_rans``) byte-histogram rANS, whichever stores fewest
+    bytes (header cost included).  Binary rANS — the near-entropy coder
+    for iid-biased bit streams (native/nbf.cpp) — is only attempted when
+    the stream's bit density is away from 0.5 (quantized prob outside
+    [0.35, 0.65]), where H(p) < 1 leaves room to win; witness streams
+    (~0.8 ones) and sparse pass-through masks are the targets.  Byte
+    rANS targets value streams and DPCM residuals, where DEFLATE's
+    Huffman stage leaves 5-15% on the table and runs 5-10x slower; its
+    384-byte stored table needs sections of a few KB to amortize."""
+    if raw is None or len(raw) == 0:
+        return (0, b"", 0)
+    best_cost, best = len(raw), (0, raw, 0)
+    z = secs.zsecs[zi]
+    if z and len(z) + 4 < best_cost:
+        best_cost, best = len(z) + 4, (1, z, len(raw))
+    hist = secs.hist(("s", zi), raw)
+    ones = int(hist @ native._POP8)
+    prob, floor_b = _bitrans_pred(len(raw), ones)
+    # attempt binary rANS only when its provable floor can still beat
+    # the current best (acceptance needs len(r) + 5 < best_cost and
+    # len(r) >= floor - slack)
+    if (prob <= 90 or prob >= 166) and floor_b + 3.0 < best_cost:
+        r = native.rans_encode(raw, prob)
+        if r is not None and len(r) + 5 < best_cost:
+            best_cost = len(r) + 5
+            best = (2, r, len(raw), prob)
+    if byte_rans and len(raw) >= RANS8_MIN:
+        # entropy pre-gates (see _enqueue_rans): skip coders the
+        # stream's H0/H1 already rules out — value streams are often
+        # near-uniform changed-pixel bytes where a wasted rANS pass costs
+        # milliseconds per frame.
+        nzp = hist[hist > 0] / len(raw)
+        h0 = float(-(nzp * np.log2(nzp)).sum())
+        if h0 * len(raw) / 8.0 + 392 < best_cost:
+            r8 = native.rans8_encode(raw)
+            if r8 is not None and len(r8) + 4 < best_cost:
+                best_cost = len(r8) + 4
+                best = (3, r8, len(raw))
+        if len(raw) >= RANSC_MIN:
+            h1 = native.cond_entropy_bits(raw)
+            if h1 * len(raw) / 8.0 + 3084 < best_cost * 1.02:
+                rc = native.ransc_encode(raw)
+                if rc is not None and len(rc) + 4 < best_cost:
+                    best_cost = len(rc) + 4
+                    best = (4, rc, len(raw))
+    return best
+
+
+def _wrap_shift(chunk: HostChunk, j: int, rec: bytes) -> bytes:
+    """``rec``, motion-wrapped when frame j carries a nonzero shift
+    (keyframes never wrap — they reset)."""
+    dy, dx = int(chunk.shifts[j, 0]), int(chunk.shifts[j, 1])
+    return fc.wrap_motion(dy, dx, rec) if dy or dx else rec
+
+
+def _best_trial(chunk: HostChunk, trials) -> bytes:
+    """Smallest residual trial, wrapped with ITS OWN prediction (which
+    may differ from the mask path's shifts[j])."""
+    best = None
+    for tag, m, rec in trials:
+        rec = PREDICTIONS[tag].wrap(m, rec, chunk.tlog)
+        if best is None or len(rec) < len(best):
+            best = rec
+    return best
+
+
+def _witness_coding(secs: ChunkSections, j: int, wbits: int):
+    """The witness section of blocked frame ``j``: its per-section
+    choice, or the coding-7 candidate: strip the per-block byte padding
+    (~17% of witness bytes on sparse-change content) and binary-rANS the
+    pure bit stream; the decoder re-pads from its own membership counts,
+    so only the packed byte count travels.  Beats the
+    DEFLATE-of-padded-rows trial, whose only edge WAS the padding
+    structure."""
+    wsec = _section_coding(secs, secs.wit[j], secs.wz[j])
+    if wbits:
+        packed = secs.wit_pk[j]
+        ones = int(secs.hist(("wp", j), packed) @ native._POP8)
+        prob, floor_b = _bitrans_pred(len(packed), ones)
+        # coding-7 stored cost is len(r) + 10 header bytes
+        # (fc._sec_stored_cost); attempt the encode only when the
+        # provable floor can still win
+        if floor_b + 8.0 < fc._sec_stored_cost(wsec):
+            r = native.rans_encode(packed, prob)
+            if r is not None:
+                w7 = (7, r, len(packed), prob)
+                if fc._sec_stored_cost(w7) < fc._sec_stored_cost(wsec):
+                    wsec = w7
+    return wsec
+
+
+def _inter_record(chunk: HostChunk, secs: ChunkSections, j: int) -> bytes:
+    """The record of pass-through or blocked frame ``j``: per-section
+    entropy choice; all-raw falls back to the type-3 layout (decodes in
+    older readers), or type 0 for pass-through.  A pass-through frame
+    takes its smallest residual trial instead where that stores fewer
+    bytes."""
+    n, k = chunk.n, chunk.ks[j]
+    p = int(chunk.frame_counts[j]) / n
+    values_z = secs.zsecs[secs.vz[j]]
+    vcount = len(secs.val[j])
+    vsec = _section_coding(secs, secs.val[j], secs.vz[j], byte_rans=True)
+    bsec = _section_coding(secs, secs.bm[j], secs.bz[j])
+    passing = chunk.kinds[j] == "pass"
+    if passing:
+        bits, wbits, wsec, rtype = n, 0, (0, b"", 0), fc.INTERFRAME
+    else:
+        bits, wbits = int(chunk.m_arr[j]) * chunk.nb, int(chunk.wcnt[j].sum())
+        wsec, rtype = _witness_coding(secs, j, wbits), fc.BLOCKED
+    if vsec[0] != 1:
+        rec = fc.build_blocked_s_record(p, n, k, bits, wbits, bsec, wsec,
+                                        vsec)
+    elif bsec[0] or wsec[0]:
+        rec = fc.build_blocked_z_record(p, n, k, bits, wbits, bsec, wsec,
+                                        values_z, vcount)
+    else:
+        rec = fc.build_interframe_record(
+            p, n, k, secs.bm[j], bits, secs.wit[j] or b"", wbits,
+            values_z=values_z, values_count=vcount, rtype=rtype)
+    if passing:
+        res_rec = _best_trial(chunk, secs.res_trials[j])
+        if len(res_rec) < len(rec) + (
+                5 if (chunk.shifts[j, 0] or chunk.shifts[j, 1]) else 0):
+            return res_rec  # carries its own wrap
+    return _wrap_shift(chunk, j, rec)
+
+
+def assemble_records(chunk: HostChunk, secs: ChunkSections) -> tuple:
+    """One record a frame, in order, from the coded sections and the
+    residual trials; returns ``(payloads, keyframes)``."""
+    payloads: List[bytes] = []
+    keyframes = 0
+    for j, kind in enumerate(chunk.kinds):
+        if kind == "empty":
+            payloads.append(_wrap_shift(chunk, j, fc.encode_empty_frame()))
+        elif kind == "key":
+            # dense fallback: DPCM residual vs full keyframe — the
+            # keyframe wins on true scene cuts (residual ~ random), the
+            # residual on grain/subpixel motion
+            key_rec = chunk.keyframe_fn(j)
+            res_rec = _best_trial(chunk, secs.res_trials[j])
+            if len(res_rec) < len(key_rec):
+                payloads.append(res_rec)  # carries its own wrap
+            else:
+                payloads.append(key_rec)
+                keyframes += 1
+        elif kind == "sparse":
+            values = _strip_rows(chunk.vseg[j], chunk.vcnt[j] * chunk.channels)
+            mask_bits = np.unpackbits(chunk.packed()[j])[:chunk.n]
+            payloads.append(_wrap_shift(chunk, j, fc.encode_sparse_frame(
+                chunk.n, np.flatnonzero(mask_bits), values,
+                zlib_level=chunk.zlib_level)))
+        else:
+            payloads.append(_inter_record(chunk, secs, j))
+    return payloads, keyframes
 
 
 # How BlockedDecoder.decode_run_begin pulled its runs' frames: into

@@ -348,12 +348,12 @@ class ImprovedVideoCompressor:
                                ) -> tuple[List[bytes], int]:
         """Batched encode through the blocked pipeline
         (models/blocked_pipeline.py): chunks of up to ``batch_size``
-        inter frames, padded to that size.  Chunk i's host phase (the
-        ``finish()`` closure) runs on ONE worker thread while the main
-        thread drives chunk i+1's device phase; the single worker keeps
-        host phases in submit order, so payload assembly is an in-order
-        drain.  ``NBF_OVERLAP=0`` pins the serial schedule: every job
-        runs inline, in the same order, to the same bytes.
+        inter frames, padded to that size.  Chunk i's host phase
+        (``blocked_pipeline.finish_chunk``) runs on ONE worker thread
+        while the main thread drives chunk i+1's device phase; the single
+        worker keeps host phases in submit order, so payload assembly is
+        an in-order drain.  ``NBF_OVERLAP=0`` pins the serial schedule:
+        every job runs inline, in the same order, to the same bytes.
         ``byte_view``: the device work runs on raw frame bytes;
         keyframes keep the original dtype."""
         payloads: List[bytes] = []

@@ -282,7 +282,7 @@ def _measured_production_fps(frames, dev_dispatch=None, device=None,
     nb = bp.blocked_tables(shape[0] * shape[1], device)["nb"]
 
     # One-time device phases + output pulls (untimed, see docstring).
-    # finish() closures re-run the pure host phase on the pulled arrays
+    # finish() callables re-run the pure host phase on the pulled arrays
     # each rep.
     finishes = []
     sub_bases = []

@@ -338,3 +338,101 @@ def test_overlap_off_writes_the_same_bytes(tmp_path, monkeypatch):
     records = [fc.record_type(p) for p in
                container.read_bfvc(str(tmp_path / "o0.bfvc"))[1]]
     assert len(records) == 13 and fc.MOTION in records
+
+
+# ---------------------------------------------------------------------------
+# The encoder's host phase: the prediction table and repeated host phases
+# ---------------------------------------------------------------------------
+
+def _searched_tags():
+    """The tags the candidate search puts into its ``cands`` list, read
+    from the module's source."""
+    import ast
+    import inspect
+
+    tags = set()
+    for node in ast.walk(ast.parse(inspect.getsource(tbp))):
+        if isinstance(node, ast.Call) and getattr(
+                node.func, "attr", None) == "append" and getattr(
+                node.func.value, "id", None) == "cands":
+            tags.add(node.args[0].elts[0].value)
+        elif isinstance(node, ast.Assign) and getattr(
+                node.targets[0], "id", None) == "cands":
+            tags |= {e.elts[0].value for e in node.value.elts}
+    return tags
+
+
+# (tag, meta, inner residual type, record type of the wrapped record)
+WRAPS = [
+    ("int", (0, 0), fc.RESIDUAL, fc.RESIDUAL),
+    ("int", (0, 0), fc.RESIDUAL_S, fc.RESIDUAL_S),
+    ("int", (0, 0), fc.RESIDUAL_F, fc.RESIDUAL_F),
+    ("int", (2, -1), fc.RESIDUAL, fc.MOTION),
+    ("hp", (1, -3), fc.RESIDUAL, fc.MOTION_HP),
+    ("ref", (2, 3, -1), fc.RESIDUAL_S, fc.REF_HP),
+    ("avg2", (2, 16), fc.RESIDUAL_F, fc.AVG2),
+    ("tile", np.array([[[1, 0], [0, -2], [0, 0]], [[-1, 1], [2, 0], [0, 1]]],
+                      np.int8), fc.RESIDUAL, fc.TILES),
+    ("tileh", np.array([[[1, 0], [0, -3], [0, 0]], [[-1, 1], [2, 0],
+                                                    [0, 1]]], np.int8),
+     fc.RESIDUAL, fc.TILES_HP),
+    ("zoomg", (2, 30000, 10000, 1, -1), fc.RESIDUAL, fc.ZOOM_G),
+    ("rotg", (2, 40000, 15000, 0, 1), fc.RESIDUAL, fc.ROT_G),
+]
+
+
+def test_prediction_table_covers_the_candidate_search():
+    assert _searched_tags() == set(tbp.PREDICTIONS) == {w[0] for w in WRAPS}
+
+
+@pytest.mark.parametrize("tag,meta,inner,rtype", WRAPS,
+                         ids=[f"{w[0]}-{w[2]}-{w[3]}" for w in WRAPS])
+def test_prediction_wraps_to_its_record_type_and_decodes(tag, meta, inner,
+                                                         rtype):
+    """Each table entry's wrapped residual record has its record type,
+    and the decoder rebuilds the frame from it: the prediction and the
+    wrapper say the same thing."""
+    import zlib
+
+    from new_bloom_filter_repo_tpu_torch.models.video import (
+        ImprovedVideoCompressor)
+
+    rng = np.random.default_rng(7)
+    hist = [rng.integers(0, 256, (32, 48, 3), dtype=np.uint8)
+            for _ in range(2)]
+    curr = rng.integers(0, 256, (32, 48, 3), dtype=np.uint8)
+    pred = tbp.PREDICTIONS[tag].predict(lambda rb: hist[-rb], meta,
+                                        tbp.TILE_LOG)
+    raw = (curr - pred).tobytes()
+    if inner == fc.RESIDUAL:
+        rec = fc.build_residual_record(len(raw), zlib.compress(raw))
+    elif inner == fc.RESIDUAL_S:
+        rec = fc.build_residual_s_record((0, raw, 0))
+    else:
+        plane = np.frombuffer(raw, np.uint8).reshape(curr.shape)
+        rec = fc.build_residual_f_record(
+            2, (0, fc.spatial_filter(plane, 2).tobytes(), 0))
+    wrapped = tbp.PREDICTIONS[tag].wrap(meta, rec, tbp.TILE_LOG)
+    assert fc.record_type(wrapped) == rtype
+    got = ImprovedVideoCompressor(device="cpu")._apply_residual_record(
+        wrapped, rtype, hist[-1], hist, False)
+    np.testing.assert_array_equal(got, curr)
+
+
+def test_host_phase_runs_again_to_the_same_bytes():
+    """Each chunk's host phase, run again after the next chunk's, gives
+    the same records: the zoom and rotation trackers start every run of
+    a chunk from its entry snapshot.  The clip rotates, so the first
+    chunk's type-20 trials advance the rotation tracker."""
+    from test_torch_video import rotation
+
+    frames = rotation(9, 128, 96)
+    enc = tbp.BlockedEncoder(device="cpu")
+    key = lambda c: (lambda j: fc.encode_keyframe_best(c[j], None))  # noqa
+    fins = [enc.encode_chunk_begin(frames[0], frames[1:5],
+                                   key(frames[1:5])),
+            enc.encode_chunk_begin(frames[4], frames[5:], key(frames[5:]))]
+    first = [fin() for fin in fins]
+    assert [fin() for fin in fins] == first
+    assert [fins[1](), fins[0]()] == first[::-1]
+    assert fc.ROT_G in {fc.record_type(p) for p in first[0][0]}

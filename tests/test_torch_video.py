@@ -7,6 +7,7 @@ in RGB and grayscale; the port runs on the CPU, through its kernels'
 plain twins.
 """
 
+import math
 import os
 
 import numpy as np
@@ -26,6 +27,7 @@ from test_video_api import make_video
 from new_bloom_filter_repo_tpu_torch.utils import container
 from new_bloom_filter_repo_tpu_torch.utils.synthetic import (
     SUITE,
+    _smooth_texture,
     generate_frames,
 )
 
@@ -34,7 +36,10 @@ FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
 
 
 def clip(name, f, w, h, gray=False, seed=0):
-    frames = generate_frames(f, w, h, seed=seed, **SUITE[name])
+    """``f`` frames of ``w`` x ``h``: of the suite's class ``name``, or
+    made by ``name(f, w, h)``."""
+    frames = (name(f, w, h) if callable(name)
+              else generate_frames(f, w, h, seed=seed, **SUITE[name]))
     if gray:
         frames = [np.ascontiguousarray(x[..., 0]) for x in frames]
     return frames
@@ -54,8 +59,48 @@ def assert_frames_equal(got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
+def rotation(f, w, h, rate=8000, seed=2):
+    """A smooth texture rotating ``rate`` microradians a frame about the
+    centre, nearest-neighbour: type-20 records."""
+    base = _smooth_texture(np.random.default_rng(seed), h, w, False)
+    yy = np.arange(h, dtype=np.float64)[:, None] - h / 2.0
+    xx = np.arange(w, dtype=np.float64)[None, :] - w / 2.0
+    out = []
+    for i in range(f):
+        c, s = math.cos(rate * i * 1e-6), math.sin(rate * i * 1e-6)
+        ry = np.clip(np.floor(h / 2.0 + yy * c - xx * s).astype(np.int64),
+                     0, h - 1)
+        rx = np.clip(np.floor(w / 2.0 + yy * s + xx * c).astype(np.int64),
+                     0, w - 1)
+        out.append(base[ry, rx])
+    return out
+
+
+def sensor(f, w, h):
+    """A static scene under sensor noise of sigma 1 on every pixel: bare
+    byte-rANS residuals (type 13)."""
+    return generate_frames(f, w, h, seed=0, noise=1.0, noise_frac=1.0,
+                           speed=0.0)
+
+
+def split_halfpel(f, w, h, seed=3):
+    """A smooth texture whose left half moves right and right half moves
+    left by half a pixel a frame (rounded mean of neighbours, edges
+    clamped): one half-pel phase a tile, type-17 records."""
+    x = _smooth_texture(np.random.default_rng(seed), h, w, False).astype(
+        np.uint16)
+    out = [x]
+    for _ in range(f - 1):
+        left = np.concatenate([x[:, :1], x[:, :-1]], axis=1)
+        right = np.concatenate([x[:, 1:], x[:, -1:]], axis=1)
+        x = np.concatenate([(x + left + 1)[:, : w // 2] >> 1,
+                            (x + right + 1)[:, w // 2:] >> 1], axis=1)
+        out.append(x)
+    return [a.astype(np.uint8) for a in out]
+
+
 CLIPS = {
-    # name: (class, frames, width, height, gray)
+    # name: (class or maker, frames, width, height, gray)
     "static_gentle_rgb": ("static_gentle", 16, 64, 48, False),
     "static_gentle_gray": ("static_gentle", 12, 96, 80, True),
     "pan_rgb": ("pan", 16, 64, 48, False),
@@ -65,7 +110,15 @@ CLIPS = {
     "zoom_rgb": ("zoom", 12, 64, 48, False),
     "film_grain_rgb": ("film_grain", 12, 64, 48, False),
     "pan_subpixel_rgb": ("pan_subpixel", 12, 64, 48, False),
+    "rotation_rgb": (rotation, 8, 128, 96, False),
+    "sensor_rgb": (sensor, 5, 64, 48, False),
+    "split_halfpel_rgb": (split_halfpel, 6, 64, 48, False),
 }
+
+# Record types a clip must hold, beside being byte-identical: each of
+# these predictions is emitted by no other clip.
+EMITS = {"rotation_rgb": fc.ROT_G, "sensor_rgb": fc.RESIDUAL_S,
+         "split_halfpel_rgb": fc.TILES_HP}
 
 
 @pytest.mark.parametrize("name", sorted(CLIPS))
@@ -79,6 +132,8 @@ def test_bfvc_byte_identical_and_cross_decodes(tmp_path, name):
         keyframe_interval=30, device="cpu").compress_video(frames, tpath)
     with open(jpath, "rb") as a, open(tpath, "rb") as b:
         assert a.read() == b.read(), f"{name}: .bfvc bytes differ"
+    if name in EMITS:
+        assert EMITS[name] in record_types(tpath), record_types(tpath)
     for k in ("frame_count", "original_size", "compressed_size",
               "keyframes"):
         assert tstats[k] == jstats[k]
