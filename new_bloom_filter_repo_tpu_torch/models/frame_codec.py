@@ -366,6 +366,10 @@ def encode_keyframe(frame: np.ndarray, yuv_info: dict | None = None,
     return _keyframe_record(frame, yuv_info, flag, zs, typed, filter_id)
 
 
+# The filter ids of encode_keyframe_best's typed trials (unfiltered,
+# SUB, UP, MED), whose streams DEFLATE as one threaded batch.
+KEYFRAME_FILTERS = (0, 1, 2, 3)
+
 # How often encode_keyframe_best batched its trials' DEFLATEs: calls
 # (``keyframes``), native batches, streams in them, and streams whose
 # DEFLATE the sectioned trial took from the batch.
@@ -421,7 +425,7 @@ def encode_keyframe_best(frame: np.ndarray, yuv_info: dict | None = None,
                                    zlib_level=zlib_level)
         flag = _keyframe_flag(frame, yuv_info, True)
         arrs = _keyframe_arrays(frame, yuv_info, flag)
-        fids = (0, 1, 2, 3)
+        fids = KEYFRAME_FILTERS
         raws = [[_stream_bytes(a, fid) for a in arrs] for fid in fids]
         flat = [raw for trial in raws for raw in trial]
         with profiling.span("nbf.keyframe_deflate"):

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import os
 import struct
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
@@ -349,21 +350,31 @@ class ImprovedVideoCompressor:
         """Batched encode through the blocked pipeline
         (models/blocked_pipeline.py): chunks of up to ``batch_size``
         inter frames, padded to that size.  Chunk i's host phase
-        (``blocked_pipeline.finish_chunk``) runs on ONE worker thread
+        (``blocked_pipeline.finish_chunk``) runs on ONE finish worker
         while the main thread drives chunk i+1's device phase; the single
-        worker keeps host phases in submit order, so payload assembly is
-        an in-order drain.  ``NBF_OVERLAP=0`` pins the serial schedule:
-        every job runs inline, in the same order, to the same bytes.
-        ``byte_view``: the device work runs on raw frame bytes;
-        keyframes keep the original dtype."""
-        payloads: List[bytes] = []
-        keyframes = 0
+        worker keeps host phases in submit order, as the encoder's
+        cross-chunk state needs.  A scheduled keyframe reads its own
+        frame alone: every one goes to a keyframe pool
+        (:func:`keyframe_pool_width` threads) when the call starts, and
+        the main thread awaits them after the last ``finish()``, in plan
+        order.  Each job's payloads fill its plan slot.  ``NBF_OVERLAP=0``
+        pins the serial schedule: every job runs inline, in plan order,
+        to the same bytes.  ``byte_view``: the device work runs on raw
+        frame bytes; keyframes keep the original dtype."""
         # stream boundary: the type-18 zoom tracker must not carry an
         # anchor from a previous video or plane sequence
         self._blocked_enc.begin_stream()
         darrs = [self._byte_view(a) for a in arrs] if byte_view else arrs
         segments = _plan_segments(len(arrs), self.keyframe_interval,
                                   self._chunk)
+        slots: List[List[bytes]] = [[] for _ in segments]
+        keys = [i for i, seg in enumerate(segments) if seg[0] == "key"]
+        keyframes = len(keys)
+
+        def key_job(start):
+            return fc.encode_keyframe_best(
+                arrs[start], infos[start],
+                zlib_level=self._keyframe_zlib_level)
 
         def stack_for(seg):
             _, s, e = seg
@@ -372,62 +383,69 @@ class ImprovedVideoCompressor:
             return cf, blocked_pipeline.BlockedEncoder.stack_chunk(
                 darrs[s - 1], cf, self.device)
 
+        def put(i, real, result):
+            nonlocal keyframes
+            chunk_payloads, kf = result
+            slots[i] = chunk_payloads[:real]
+            keyframes += kf
+
+        def drain(i, real, job):
+            with profiling.span("nbf.wait_finish"):
+                put(i, real, job.result())
+
         overlap = os.environ.get("NBF_OVERLAP", "1") == "1"
-        # (future or thunk, real, the span of the wait for it): at most
-        # ONE queued
-        inflight = None
-        with ThreadPoolExecutor(max_workers=1) as ex:
+        with ThreadPoolExecutor(keyframe_pool_width(len(keys)),
+                                "nbf-keyframe") as pool, \
+                ThreadPoolExecutor(1, "nbf-finish") as ex:
+            scheduled = {}
+            try:
+                for i in keys if overlap else ():
+                    scheduled[i] = pool.submit(key_job, segments[i][1])
+                    _count_schedule("scheduled")
+                # (plan slot, real frames, future): at most ONE queued
+                inflight = None
+                pending: dict = {}
+                for i, (kind, start, end) in enumerate(segments):
+                    if kind == "key":
+                        if not overlap:
+                            slots[i] = [key_job(start)]
+                        continue
 
-            def drain(job, real, waited):
-                nonlocal keyframes
-                if overlap:
-                    with profiling.span(waited):
-                        chunk_payloads, kf = job.result()
-                else:
-                    chunk_payloads, kf = job()
-                payloads.extend(chunk_payloads[:real])
-                keyframes += kf
+                    def keyframe_fn(j, _pos=start):
+                        return key_job(_pos + j)
 
-            pending: dict = {}
-            for i, (kind, start, end) in enumerate(segments):
-                if kind == "key":
-                    def key_job(_a=arrs[start], _i=infos[start]):
-                        return [fc.encode_keyframe_best(
-                            _a, _i,
-                            zlib_level=self._keyframe_zlib_level)], 1
-                    job = ex.submit(key_job) if overlap else key_job
+                    chunk_frames, stacked = pending.pop(i, (None, None))
+                    if stacked is None:
+                        chunk_frames, stacked = stack_for(segments[i])
+                    if self.prefetch:
+                        for j in range(i + 1, len(segments)):
+                            if segments[j][0] == "run":
+                                if j not in pending:
+                                    pending[j] = stack_for(segments[j])
+                                break
+
+                    finish = self._blocked_enc.encode_chunk_begin(
+                        darrs[start - 1], chunk_frames, keyframe_fn,
+                        stacked=stacked, byte_view=byte_view)
+                    if not overlap:
+                        put(i, end - start, finish())
+                        continue
+                    job = ex.submit(finish)
                     if inflight is not None:
                         drain(*inflight)
-                    inflight = (job, 1, "nbf.wait_keyframe")
-                    continue
-                real = end - start
-
-                def keyframe_fn(j, _pos=start):
-                    idx = _pos + j
-                    return fc.encode_keyframe_best(
-                        arrs[idx], infos[idx],
-                        zlib_level=self._keyframe_zlib_level)
-
-                chunk_frames, stacked = pending.pop(i, (None, None))
-                if stacked is None:
-                    chunk_frames, stacked = stack_for((kind, start, end))
-                if self.prefetch:
-                    for j in range(i + 1, len(segments)):
-                        if segments[j][0] == "run":
-                            if j not in pending:
-                                pending[j] = stack_for(segments[j])
-                            break
-
-                finish = self._blocked_enc.encode_chunk_begin(
-                    darrs[start - 1], chunk_frames, keyframe_fn,
-                    stacked=stacked, byte_view=byte_view)
-                job = ex.submit(finish) if overlap else finish
+                    inflight = (i, end - start, job)
                 if inflight is not None:
                     drain(*inflight)
-                inflight = (job, real, "nbf.wait_finish")
-            if inflight is not None:
-                drain(*inflight)
-        return payloads, keyframes
+                for i, job in scheduled.items():
+                    _count_schedule("ready" if job.done() else "waited")
+                    with profiling.span("nbf.wait_keyframe"):
+                        slots[i] = [job.result()]
+            finally:
+                # a job that raised leaves the keyframes not yet started
+                # unrun; those running end before the pool's with does
+                for job in scheduled.values():
+                    job.cancel()
+        return [p for slot in slots for p in slot], keyframes
 
     def _encode_frames_batched_bfv2(self, arrs, infos
                                     ) -> tuple[List[bytes], int]:
@@ -1289,6 +1307,39 @@ def _plan_segments(total: int, keyframe_interval: int,
         segments.append(("run", pos, run_end))
         pos = run_end
     return segments
+
+
+def keyframe_pool_width(scheduled: int) -> int:
+    """Threads of the keyframe pool: one a scheduled keyframe, as many
+    as the host's cores hold side by side, each keyframe DEFLATEing its
+    typed trials as one batch of ``len(fc.KEYFRAME_FILTERS)`` threads."""
+    return max(1, min(scheduled,
+                      (os.cpu_count() or 1) // len(fc.KEYFRAME_FILTERS)))
+
+
+# How the batched encoder's scheduled keyframes ran: on the keyframe
+# pool (``scheduled``), and whether each was done when the main thread
+# came to wait for it (``ready``) or not yet (``waited``).
+_SCHEDULE_KEYS = ("scheduled", "ready", "waited")
+_schedule_counts = dict.fromkeys(_SCHEDULE_KEYS, 0)
+_schedule_lock = threading.Lock()
+
+
+def reset_keyframe_schedule_counts() -> None:
+    """Set every count of :func:`keyframe_schedule_counts` to 0."""
+    with _schedule_lock:
+        _schedule_counts.update(dict.fromkeys(_SCHEDULE_KEYS, 0))
+
+
+def keyframe_schedule_counts() -> Dict[str, int]:
+    """Counts of scheduled keyframes since the last reset."""
+    with _schedule_lock:
+        return dict(_schedule_counts)
+
+
+def _count_schedule(kind: str) -> None:
+    with _schedule_lock:
+        _schedule_counts[kind] += 1
 
 
 def _resolve_mesh(devices, device_type: str = "cuda") -> Optional[Mesh]:

@@ -17,8 +17,8 @@ and returns a shared no-op.  While a session records, each span opens a
 ``record_function`` (a ``user_annotation`` in the Chrome trace, on the
 trace's clock) and is kept in memory with its thread, start, end and
 parent; ``recorded_spans()`` reads them back.  The kept spans include
-those of the encoder's overlap worker thread, which a profiler session
-started on the main thread does not show.  Their clock is
+those of the encoder's finish worker and keyframe pool threads, which a
+profiler session started on the main thread does not show.  Their clock is
 ``time.time_ns()``; the main thread's spans, which are in the trace too,
 map them onto the trace's.
 """
@@ -44,7 +44,7 @@ def trace(log_dir: Optional[str] = None):
     no-op so hot paths can keep the call site unconditionally.  The
     Chrome trace ``trace_<pid>_<ns>.json`` is written into the directory
     when the region ends.  Where the installed PyTorch can, the trace
-    holds every thread's events, so the overlap worker's ``nbf.*`` spans
+    holds every thread's events, so the encoder's workers' ``nbf.*`` spans
     (keyframes, ``nbf.finish``) show beside the main thread's.
     """
     log_dir = log_dir or os.environ.get("NBF_TRACE_DIR")

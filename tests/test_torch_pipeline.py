@@ -307,37 +307,103 @@ def test_encode_chunk_matches_begin_and_jax(name):
     assert "enc_device_phase_a" in times and "enc_assembly" in times
 
 
-def test_overlap_off_writes_the_same_bytes(tmp_path, monkeypatch):
-    """``NBF_OVERLAP=0`` (every host phase inline) against the default
-    worker schedule and against the JAX package, on a clip with a
-    scheduled keyframe in the middle and three chunks a run."""
+@pytest.mark.parametrize("interval, keys", [(6, 3), (4, 4)])
+def test_overlap_off_writes_the_same_bytes(tmp_path, monkeypatch, interval,
+                                           keys):
+    """``NBF_OVERLAP=0`` (every job inline) against the default schedule
+    (the finish worker, and a keyframe pool two threads wide, fewer than
+    the clip's scheduled keyframes) and against the JAX package, on 13
+    frames with scheduled keyframes in the middle and chunks of two; the
+    schedule counter."""
     from new_bloom_filter_repo_tpu.models.video import (
         ImprovedVideoCompressor as JaxCompressor)
-    from new_bloom_filter_repo_tpu_torch.models.video import (
-        ImprovedVideoCompressor)
+    from new_bloom_filter_repo_tpu_torch.models import video
 
+    monkeypatch.setattr(video.os, "cpu_count", lambda: 8)
+    plan = video._plan_segments(13, interval, 2)
+    assert sum(kind == "key" for kind, _, _ in plan) == keys
+    assert video.keyframe_pool_width(keys) == 2
     frames = clip("pan", f=13)
-    blobs = {}
+    blobs, counts = {}, {}
     for overlap in ("1", "0"):
         monkeypatch.setenv("NBF_OVERLAP", overlap)
         path = str(tmp_path / f"o{overlap}.bfvc")
-        comp = ImprovedVideoCompressor(device="cpu", keyframe_interval=6,
-                                       batch_size=2)
+        comp = video.ImprovedVideoCompressor(
+            device="cpu", keyframe_interval=interval, batch_size=2)
+        video.reset_keyframe_schedule_counts()
         comp.compress_video(frames, path, input_color_space="BGR")
+        counts[overlap] = video.keyframe_schedule_counts()
         with open(path, "rb") as fh:
             blobs[overlap] = fh.read()
         for got, src in zip(comp.decompress_video(path), frames):
             np.testing.assert_array_equal(np.asarray(got), src)
     monkeypatch.setenv("NBF_OVERLAP", "0")
     path = str(tmp_path / "jax.bfvc")
-    JaxCompressor(keyframe_interval=6, batch_size=2).compress_video(
+    JaxCompressor(keyframe_interval=interval, batch_size=2).compress_video(
         frames, path, input_color_space="BGR")
     with open(path, "rb") as fh:
         blobs["jax"] = fh.read()
     assert blobs["0"] == blobs["1"] == blobs["jax"]
+    on = counts["1"]
+    assert on["scheduled"] == keys == on["ready"] + on["waited"]
+    assert counts["0"] == {"scheduled": 0, "ready": 0, "waited": 0}
     records = [fc.record_type(p) for p in
                container.read_bfvc(str(tmp_path / "o0.bfvc"))[1]]
     assert len(records) == 13 and fc.MOTION in records
+
+
+@pytest.mark.parametrize("where", ["keyframe", "finish"])
+def test_a_failed_job_raises_out_of_compress(tmp_path, monkeypatch, where):
+    """The second scheduled keyframe (on the keyframe pool) or the second
+    chunk's ``finish()`` raises: ``compress_video`` raises that error
+    within its time limit, and no worker thread outlives the call."""
+    import signal
+    import threading
+
+    from new_bloom_filter_repo_tpu_torch.models import video
+
+    class Planted(Exception):
+        pass
+
+    calls = []
+    lock = threading.Lock()
+
+    def failing(real, on_thread):
+        def wrapped(*args, **kwargs):
+            if threading.current_thread().name.startswith(on_thread):
+                with lock:
+                    calls.append(1)
+                    nth = len(calls)
+                if nth == 2:
+                    raise Planted(where)
+            return real(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(video.os, "cpu_count", lambda: 8)
+    if where == "keyframe":
+        monkeypatch.setattr(fc, "encode_keyframe_best", failing(
+            fc.encode_keyframe_best, "nbf-keyframe"))
+    else:
+        monkeypatch.setattr(tbp, "finish_chunk", failing(
+            tbp.finish_chunk, "nbf-finish"))
+    comp = video.ImprovedVideoCompressor(device="cpu", keyframe_interval=4,
+                                         batch_size=2)
+
+    def expire(signum, frame):
+        raise TimeoutError("compress_video did not end within 60 s")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(60)
+    try:
+        with pytest.raises(Planted, match=where):
+            comp.compress_video(clip("pan", f=13), str(tmp_path / "x.bfvc"),
+                                input_color_space="BGR")
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+    assert len(calls) >= 2
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith(("nbf-keyframe", "nbf-finish"))]
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """The port's ``nbf.*`` spans (``utils/profiling.span``): off, a round
 trip keeps nothing and never opens a ``record_function``; under a
 ``torch.profiler`` session on the CPU the main thread's spans are in the
-Chrome trace, the overlap worker's are kept with their thread, and the
-benchmark's mapping (``portbench/programspans.py``) puts them inside the
-calls that caused them; the file's bytes never change.
+Chrome trace, the finish worker's and the keyframe pool's are kept with
+their thread, and the benchmark's mapping (``portbench/programspans.py``)
+puts them inside the calls that caused them; the file's bytes never
+change.
 
 The clip: 20 frames of ``static_gentle`` and 20 with noise on every
 pixel, 64x48, a keyframe every 30 frames, so that one round trip takes
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from new_bloom_filter_repo_tpu_torch.models import video
 from new_bloom_filter_repo_tpu_torch.models.video import (
     ImprovedVideoCompressor,
 )
@@ -219,7 +221,19 @@ def test_the_file_is_the_same_traced_or_not(traced, tmp_path, monkeypatch,
         assert threads == {threading.main_thread().ident}
         assert "nbf.finish" in names and "nbf.wait_finish" not in names
     else:
-        assert len(threads) == 2 and "nbf.wait_finish" in names
+        # the main thread, the finish worker, and the keyframe pool's
+        # threads, which run the scheduled keyframes (no parent) apart
+        # from every finish()
+        main = threading.main_thread().ident
+        kept = profiling.recorded_spans()
+        finish = {s.thread for s in kept if s.name == "nbf.finish"}
+        keys = {s.thread for s in kept
+                if s.name == "nbf.keyframe" and s.parent is None}
+        assert len(finish) == 1 and main not in finish | keys
+        assert keys and not keys & finish
+        assert len(keys) <= video.keyframe_pool_width(2)
+        assert threads == {main} | finish | keys
+        assert "nbf.wait_finish" in names
 
 
 def test_the_operators_trace_shows_the_worker(tmp_path, monkeypatch):
