@@ -619,7 +619,7 @@ class ImprovedVideoCompressor:
         counts = []
         keyframes = 0
         native_size = 0
-        for plane in ("y_plane", "u_plane", "v_plane"):
+        for plane in _PLANES:
             for i in infos:
                 dt = np.asarray(i[plane]).dtype
                 if dt != np.uint8:
@@ -627,10 +627,12 @@ class ImprovedVideoCompressor:
                         f"planar profile requires uint8 planes, got {dt} "
                         f"for {plane}; use profile='blocked' (byte-domain "
                         f"inter coding) for high-bit-depth frames")
-            seq = [np.ascontiguousarray(i[plane], dtype=np.uint8)
-                   for i in infos]
-            native_size += sum(p.nbytes for p in seq)
-            pl, kf = self._encode_frames(seq)
+            with profiling.span("nbf.plane_" + plane[0]):
+                seq = [np.ascontiguousarray(i[plane], dtype=np.uint8)
+                       for i in infos]
+                native_size += sum(p.nbytes for p in seq)
+                pl, kf = self._encode_frames(seq)
+            _count_planar(plane[0], len(seq), kf, sum(len(p) for p in pl))
             counts.append(len(pl))
             keyframes += kf
             payloads.extend(pl)
@@ -645,24 +647,26 @@ class ImprovedVideoCompressor:
             raise ValueError("planar stream must carry 3 planes")
         seqs = []
         pos = 1
-        for c in hdr["plane_counts"]:
+        for plane, c in zip(_PLANES, hdr["plane_counts"]):
             if pos + c > len(payloads):
                 raise ValueError("planar stream truncated")
-            seqs.append(self._decode_payloads(payloads[pos:pos + c],
-                                              typed=True))
+            with profiling.span("nbf.plane_" + plane[0]):
+                seqs.append(self._decode_payloads(payloads[pos:pos + c],
+                                                  typed=True))
             pos += c
         frames = []
-        for i in range(hdr["frame_count"]):
-            y = np.asarray(unwrap(seqs[0][i]))
-            u = np.asarray(unwrap(seqs[1][i]))
-            v = np.asarray(unwrap(seqs[2][i]))
-            ry, rx = y.shape[0] // u.shape[0], y.shape[1] // u.shape[1]
-            u444 = np.repeat(np.repeat(u, ry, axis=0), rx, axis=1)
-            v444 = np.repeat(np.repeat(v, ry, axis=0), rx, axis=1)
-            frames.append(YUVFrame(
-                np.stack([y, u444, v444], axis=-1),
-                {"format": hdr["format"], "y_plane": y,
-                 "u_plane": u, "v_plane": v}))
+        with profiling.span("nbf.reassemble_444"):
+            for i in range(hdr["frame_count"]):
+                y = np.asarray(unwrap(seqs[0][i]))
+                u = np.asarray(unwrap(seqs[1][i]))
+                v = np.asarray(unwrap(seqs[2][i]))
+                ry, rx = y.shape[0] // u.shape[0], y.shape[1] // u.shape[1]
+                u444 = np.repeat(np.repeat(u, ry, axis=0), rx, axis=1)
+                v444 = np.repeat(np.repeat(v, ry, axis=0), rx, axis=1)
+                frames.append(YUVFrame(
+                    np.stack([y, u444, v444], axis=-1),
+                    {"format": hdr["format"], "y_plane": y,
+                     "u_plane": u, "v_plane": v}))
         return frames
 
     def compress_video(self, frames: List, output_path: str = None,
@@ -1340,6 +1344,41 @@ def keyframe_schedule_counts() -> Dict[str, int]:
 def _count_schedule(kind: str) -> None:
     with _schedule_lock:
         _schedule_counts[kind] += 1
+
+
+# The planar profile's plane sequences, in the order the file holds them.
+_PLANES = ("y_plane", "u_plane", "v_plane")
+# What the planar encoder coded, plane by plane (``y``, ``u``, ``v``):
+# passes of the plane's sequence through the encoder, its frames, its
+# keyframe records and its payload bytes.
+_PLANAR_KEYS = ("passes", "frames", "keyframes", "bytes")
+_planar_counts = {p[0]: dict.fromkeys(_PLANAR_KEYS, 0) for p in _PLANES}
+_planar_lock = threading.Lock()
+
+
+def reset_planar_counts() -> None:
+    """Set every count of :func:`planar_counts` to 0."""
+    with _planar_lock:
+        for counts in _planar_counts.values():
+            counts.update(dict.fromkeys(_PLANAR_KEYS, 0))
+
+
+def planar_counts() -> Dict[str, Dict[str, int]]:
+    """Counts of the planar encoder's plane passes since the last reset:
+    for each plane (``y``, ``u``, ``v``), its ``passes``, ``frames``,
+    ``keyframes`` and payload ``bytes``."""
+    with _planar_lock:
+        return {p: dict(c) for p, c in _planar_counts.items()}
+
+
+def _count_planar(plane: str, frames: int, keyframes: int,
+                  nbytes: int) -> None:
+    with _planar_lock:
+        counts = _planar_counts[plane]
+        counts["passes"] += 1
+        counts["frames"] += frames
+        counts["keyframes"] += keyframes
+        counts["bytes"] += nbytes
 
 
 def _resolve_mesh(devices, device_type: str = "cuda") -> Optional[Mesh]:

@@ -442,6 +442,57 @@ def test_kept_frames_survive_later_decodes(dev, tmp_path):
     assert want == [w.tobytes() for w in clips[0][0]]
 
 
+def test_a_planar_i420_pan4_clip_on_the_card_equals_cpu_and_reference(
+        dev, tmp_path):
+    """A 320x180 clip of the benchmark's ``pan4`` mix as I420 planes,
+    through the ``i420-1080-gop250`` configuration's compressor on the
+    card: its file equals the CPU's byte for byte, its decode the plain
+    reference (``portbench/planar_reference.py``) in planes and 4:4:4
+    view, and ``planar_counts()`` reads one pass a plane."""
+    import json
+    import os
+
+    from new_bloom_filter_repo_tpu_torch.models import video
+    from portbench import planar_reference, run
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "portbench")
+    with open(os.path.join(bench, "configs", "i420-1080-gop250.json")) as fh:
+        config = json.load(fh)
+    with open(os.path.join(bench, "traffic", "pan4.json")) as fh:
+        traffic = json.load(fh)
+    n, h, w = 40, 180, 320
+    compressor = config["compressor"]
+    made = run.make_clip(dict(config, width=w, height=h),
+                         dict(traffic, frames=n), 2**32 + 23)
+    planes, clip = made.planes, made.frames
+    files = []
+    for d in (dev, "cpu"):
+        files.append(str(tmp_path / f"{d}.bfvc"))
+        video.reset_planar_counts()
+        ImprovedVideoCompressor(device=d, verbose=False,
+                                **compressor).compress_video(
+            clip, files[-1], input_color_space="YUV")
+        counts = video.planar_counts()
+        assert sum(c["passes"] for c in counts.values()) == 3
+        assert {p: (c["frames"], c["keyframes"]) for p, c in counts.items()
+                } == {p: (n, 1) for p in planar_reference.PLANES}
+    with open(files[0], "rb") as a, open(files[1], "rb") as b:
+        data = a.read()
+        assert data == b.read()
+    assert planar_reference.shape_of(data) == planar_reference.container(
+        n, compressor["keyframe_interval"], w, h)
+    dec = ImprovedVideoCompressor(device=dev, **compressor).decompress_video(
+        files[0])
+    want = planar_reference.decoded(planes)
+    assert len(dec) == len(want) == n
+    for got, ref in zip(dec, want):
+        for p in planar_reference.PLANES:
+            assert (np.asarray(got.yuv_info[p + "_plane"]).tobytes()
+                    == ref[p].tobytes())
+        assert np.asarray(got).tobytes() == ref["view"].tobytes()
+
+
 # ---------------------------------------------------------------------------
 # The other profiles and modes: torch ops on the card, CUDA vs CPU bytes
 # ---------------------------------------------------------------------------
